@@ -1,0 +1,19 @@
+"""selkies_tpu_torch — the PyTorch/CUDA port of selkies_tpu's H.264 engine.
+
+The JAX package ``selkies_tpu`` is the reference; this package keeps its
+module names (``codecs/h264``, ``ops/h264_planes``, ``engine/h264_encoder``
+...) so every function has a findable counterpart, but it imports neither
+``jax`` nor anything of ``selkies_tpu``: what it needs of the reference's
+jax-free modules (CAVLC tables, bitstream headers, settings) is copied.
+
+The slice ported so far is the stock H.264 4:2:0 session on one device
+(IDR + zero-motion P frames, damage gating, paint-over, overflow growth).
+Its device arithmetic runs in four hand-written CUDA kernels for Hopper
+(``csrc/``, built on first use by ``ops/_cuda.py``); every kernel has a
+plain PyTorch version beside its wrapper, which the wrapper uses only for
+tensors that lie on the CPU.
+"""
+
+from ._device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,49 @@
+"""Carry a session's state across implementations, as numpy arrays.
+
+The system's counterpart of carrying weights across: a reference
+(selkies_tpu) H.264 session's device state, read out as numpy arrays,
+loads into a port session, which then continues the same streams
+byte for byte — and back. The keys are the reference session's
+attribute names.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: device arrays of the session (name -> dtype)
+ARRAY_KEYS = {"_prev": torch.uint8, "_age": torch.int32,
+              "_sent": torch.int32, "_fnum": torch.int32,
+              "_ref_y": torch.uint8, "_ref_u": torch.uint8,
+              "_ref_v": torch.uint8}
+#: host scalars of the session
+SCALAR_KEYS = ("qp", "paint_qp", "frame_id", "_w_cap", "_out_cap",
+               "_cap_gen", "_force_after_drop")
+
+
+def session_state_to_numpy(session) -> dict:
+    """Every state array as numpy plus the host scalars."""
+    d = {k: getattr(session, k).cpu().numpy() for k in ARRAY_KEYS}
+    d.update({k: getattr(session, k) for k in SCALAR_KEYS})
+    return d
+
+
+def session_state_from_numpy(session, d: dict) -> None:
+    """Load ``d`` (numpy arrays + scalars, e.g. a reference session's
+    attributes) into ``session``'s preallocated device state, checking
+    every shape; the buffer caps it carries rebuild the steps."""
+    for k, dtype in ARRAY_KEYS.items():
+        dst = getattr(session, k)
+        src = np.asarray(d[k])
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{k}: shape {src.shape}, session has "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(torch.as_tensor(np.array(src)).to(dtype))
+    for k in SCALAR_KEYS:
+        if k in d:
+            v = d[k]
+            setattr(session, k, bool(v) if k == "_force_after_drop"
+                    else int(v))
+    session._i_step = session._build_step("i")
+    session._p_step = session._build_step("p")

@@ -1,0 +1,161 @@
+"""Boundary checks of the PyTorch/CUDA port (selkies_tpu_torch).
+
+The port imports torch and numpy only: never jax, never the JAX package
+(not even its jax-free modules), never triton at module level; it builds
+no kernel at import; its entry points default to CUDA and refuse to fall
+back to the CPU silently; settings outside the ported slice raise.
+"""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from selkies_tpu_torch.codecs import h264 as port_codec
+from selkies_tpu_torch.codecs import h264_tables as port_tables
+from selkies_tpu_torch.engine import h264_encoder as port_enc
+from selkies_tpu_torch.engine.types import CaptureSettings, EncodedChunk
+from selkies_tpu_torch.ops import _cuda
+from selkies_tpu_torch.ops import h264_planes as HP
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "selkies_tpu_torch"
+PORT_FILES = sorted(p.relative_to(ROOT).as_posix()
+                    for p in PKG.rglob("*.py"))
+PORT_MODULES = sorted(
+    p[:-3].replace("/", ".").removesuffix(".__init__") for p in PORT_FILES)
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ("import sys, importlib\n"
+            f"for m in {PORT_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'selkies_tpu' or "
+            "m.startswith('selkies_tpu.') or m == 'triton']\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_forbidden_imports(path):
+    """AST scan: no jax / selkies_tpu import anywhere, no triton at module
+    level (a kernel module imports triton inside its launcher)."""
+    tree = ast.parse((ROOT / path).read_text())
+    top = set(id(n) for n in tree.body)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "selkies_tpu"), (path, name)
+            if root == "triton":
+                assert id(node) not in top, (path, "top-level triton")
+
+
+def test_no_build_at_import():
+    assert _cuda._build_info == {}
+    assert _cuda._fns == {}
+    assert all(v == 0 for v in _cuda.LAUNCHES.values())
+
+
+def test_session_defaults_to_cuda_and_refuses_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    s = CaptureSettings(capture_width=64, capture_height=64,
+                        stripe_height=32, output_mode="h264",
+                        h264_motion_vrange=0, h264_partial_encode=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_enc.H264EncoderSession(s)
+    sess = port_enc.H264EncoderSession(s, device="cpu")
+    assert sess.device.type == "cpu"
+
+
+@pytest.mark.parametrize("change,item", [
+    ({"h264_motion_vrange": 24}, "A7"),
+    ({"h264_partial_encode": True}, "A8"),
+    ({"h264_roi_qp": True}, "A8"),
+    ({"fullcolor": True}, "A10"),
+    ({"stripe_devices": 2}, "A11"),
+    ({"watermark_path": "/nonexistent.png"}, "A5"),
+])
+def test_settings_outside_the_slice_raise(change, item):
+    kw = dict(capture_width=64, capture_height=64, stripe_height=32,
+              output_mode="h264", h264_motion_vrange=0,
+              h264_partial_encode=False)
+    kw.update(change)
+    with pytest.raises(NotImplementedError, match=item):
+        port_enc.H264EncoderSession(CaptureSettings(**kw), device="cpu")
+
+
+def test_reference_defaults_are_kept():
+    """The port's CaptureSettings keeps the reference defaults, so the
+    default settings are outside the slice and must be set explicitly."""
+    with pytest.raises(NotImplementedError):
+        port_enc.H264EncoderSession(CaptureSettings(), device="cpu")
+
+
+def test_tables_header_is_rendered_from_the_tables():
+    text = (PKG / "csrc" / "h264_tables.cuh").read_text()
+    assert text == _cuda.render_tables_header()
+
+
+@pytest.mark.parametrize("name", [
+    "CT_LEN_NP", "CT_CODE_NP", "CT_CDC_LEN_NP", "CT_CDC_CODE_NP",
+    "TZ_LEN_NP", "TZ_CODE_NP", "TZ_CDC_LEN_NP", "TZ_CDC_CODE_NP",
+    "RB_LEN_NP", "RB_CODE_NP", "MF_NP", "V_NP", "QPC_NP", "POS_CLS_NP",
+    "ZIGZAG4_NP", "CBP_INTER_CBP2CODE"])
+def test_table_copy_equals_reference(name):
+    from selkies_tpu.codecs import h264_tables as ref
+    a, b = getattr(port_tables, name), getattr(ref, name)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("mb_w,rows", [(4, 2), (5, 4), (120, 4)])
+def test_codec_copy_equals_reference(mb_w, rows):
+    from selkies_tpu.codecs import h264 as ref
+    assert port_codec.write_sps(16 * mb_w, 16 * rows) \
+        == ref.write_sps(16 * mb_w, 16 * rows)
+    assert port_codec.write_pps() == ref.write_pps()
+    for fn in ("slice_header_events", "p_slice_header_events"):
+        for x, y in zip(getattr(port_codec, fn)(mb_w, rows),
+                        getattr(ref, fn)(mb_w, rows)):
+            assert x.dtype == y.dtype and np.array_equal(x, y)
+    rb = [bytes([0, 0, 1, 5, 0, 0, 0, 3, 9])]
+    assert port_codec.assemble_annexb(rb) == ref.assemble_annexb(rb)
+
+
+def test_types_copy_equals_reference():
+    from selkies_tpu.engine import types as ref
+    assert dataclasses.asdict(CaptureSettings()) \
+        == dataclasses.asdict(ref.CaptureSettings())
+    assert [f.name for f in dataclasses.fields(EncodedChunk)] \
+        == [f.name for f in dataclasses.fields(ref.EncodedChunk)]
+
+
+def test_wrappers_check_their_inputs():
+    f = torch.zeros((64, 64, 3), dtype=torch.uint8)
+    with pytest.raises(TypeError):
+        HP.csc420_damage(f.to(torch.int32), f, 2)
+    with pytest.raises(ValueError):
+        HP.csc420_damage(f, torch.zeros((64, 32, 3), dtype=torch.uint8), 2)
+    with pytest.raises(ValueError):
+        HP.csc420_damage(f[:, ::2], f[:, ::2], 2)
+    lv = torch.zeros((4, 4, HP.N_BLOCKS, 16), dtype=torch.int16)
+    with pytest.raises(ValueError):
+        HP.cavlc_events(lv, torch.zeros((4, 5), dtype=torch.int32), True)
