@@ -2,17 +2,29 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernels of selkies_tpu_torch from csrc/, drives a
-1920x1080 H.264 4:2:0 session (stock slice: zero-MV P frames, no band
-step) through them over a seeded frame sequence — IDR, damaged and idle P
-frames, paint-over, a forced IDR and one overflow episode — and runs the
-same sequence through the kernels' plain PyTorch versions on the same
-card, requiring equal chunks and equal reference planes frame by frame.
-Then each kernel is held against its plain version at the 1080p shapes of
-the main path (tolerance 0: every output is an integer) and timed with
-CUDA events beside the plain version and its memory bound. Exits non-zero
-on any mismatch, launch error or kernel the main path did not launch;
-the last line is the device record. Needs no network and one card.
+Builds the CUDA kernels of selkies_tpu_torch from csrc/ and drives two
+1920x1080 H.264 4:2:0 sequences through them, each beside the same
+sequence through the kernels' plain PyTorch versions on the same card,
+requiring equal chunks and equal state frame by frame:
+
+1. the stock configuration (zero-MV P frames, no band path): IDR,
+   damaged and idle P frames, paint-over, a forced IDR and one overflow
+   episode;
+2. the default configuration (scroll motion search at vrange 24 /
+   hrange 8, the damage-proportional band path): IDR, vertical scrolls
+   both ways, a horizontal pan, typing in one stripe, idle frames, the
+   paint-over bands, a 100%-dirty frame (whose bytes must equal the
+   stock P step with motion), a forced IDR and a P frame. An idle frame
+   must launch the probe and nothing else.
+
+Each run resets the launch counters first and requires every kernel of
+its path to have launched. Then each kernel is held against its plain
+version at the 1080p shapes of the main path (tolerance 0: every output
+is an integer) and timed with CUDA events beside the plain version, its
+bound and, where one exists, one PyTorch call computing the same
+function. Exits non-zero on any mismatch, launch error or kernel a path
+did not launch; the last line is the device record. Needs no network and
+one card.
 """
 
 from __future__ import annotations
@@ -23,17 +35,24 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
 
+from selkies_tpu_torch.engine import state as port_state
 from selkies_tpu_torch.engine.h264_encoder import (H264EncoderSession,
                                                    h264_buffer_caps)
 from selkies_tpu_torch.engine.types import CaptureSettings
 from selkies_tpu_torch.ops import _cuda
 from selkies_tpu_torch.ops import h264_planes as HP
+from selkies_tpu_torch.ops.h264_encode import (motion_select,
+                                               motion_select_plain,
+                                               scroll_candidates)
 
 SEED = 20261017
+WIDTH, HEIGHT = 1920, 1080       # the capture size the sequences run at
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM non-tensor FP32 (data sheet)
 
@@ -43,13 +62,21 @@ KERNELS = {
                       "selkies_tpu/ops/h264_planes.py:494"),
     "mb_encode_i": ("selkies_tpu_torch/csrc/mb_encode.cu",
                     "selkies_tpu/ops/h264_planes.py:541"),
-    "mb_encode_p0": ("selkies_tpu_torch/csrc/mb_encode.cu",
-                     "selkies_tpu/ops/h264_planes.py:875"),
+    "mb_encode_p": ("selkies_tpu_torch/csrc/mb_encode.cu",
+                    "selkies_tpu/ops/h264_planes.py:875"),
     "cavlc_events": ("selkies_tpu_torch/csrc/cavlc_events.cu",
                      "selkies_tpu/ops/h264_planes.py:178"),
     "pack_stream": ("selkies_tpu_torch/csrc/pack_stream.cu",
                     "selkies_tpu/ops/h264_planes.py:324"),
+    "motion_select": ("selkies_tpu_torch/csrc/motion_select.cu",
+                      "selkies_tpu/ops/h264_encode.py:723"),
+    "row_damage_probe": ("selkies_tpu_torch/csrc/row_damage_probe.cu",
+                         "selkies_tpu/engine/h264_encoder.py:247"),
 }
+#: kernels each path launches
+STOCK_PATH = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
+              "pack_stream")
+DEFAULT_PATH = tuple(KERNELS)
 
 
 class SmokeFailure(RuntimeError):
@@ -78,6 +105,9 @@ def desktop_frames(H: int, W: int, vis_h: int):
         f[y0:y0 + 24, x0:x0 + w] = (60, 60, 70)            # title bar
 
     def text(f, y0, x0, h, w):
+        # clipped to the frame (smaller sizes, for rehearsals)
+        h = max(0, min(h, f.shape[0] - y0))
+        w = max(0, min(w, f.shape[1] - x0))
         glyphs = rng.integers(0, 2, (h // 2, w // 2), dtype=np.uint8)
         f[y0:y0 + h, x0:x0 + w] = np.repeat(np.repeat(
             glyphs, 2, 0), 2, 1)[..., None] * 200 + 20
@@ -102,13 +132,25 @@ def desktop_frames(H: int, W: int, vis_h: int):
 
 # ------------------------------------------------------------ session run
 def plain_session(settings) -> H264EncoderSession:
-    """A session whose steps run the four kernels' plain PyTorch versions
-    on the card: the path the kernel session is held against."""
+    """A session whose steps run the kernels' plain PyTorch versions on
+    the card: the path the kernel session is held against."""
     sess = H264EncoderSession(settings)
     sess._ops = HP.PLAIN_OPS
     sess._i_step = sess._build_step("i")
     sess._p_step = sess._build_step("p")
     return sess
+
+
+STATE_KEYS = ("_ref_y", "_ref_u", "_ref_v", "_age", "_sent", "_fnum",
+              "_prev")
+
+
+def snapshot(sess) -> dict:
+    snap = {k: getattr(sess, k).clone() for k in STATE_KEYS}
+    if sess._scratch is not None:
+        snap["mv"] = sess._scratch[3].clone()
+    snap["_host_age"] = torch.as_tensor(sess._host_age.copy())
+    return snap
 
 
 def run_sequence(sess: H264EncoderSession, frames) -> list:
@@ -122,9 +164,7 @@ def run_sequence(sess: H264EncoderSession, frames) -> list:
 
     def step(frame, force):
         chunks = sess.finalize(sess.encode(frame, force=force))
-        snap = {k: getattr(sess, k).clone() for k in (
-            "_ref_y", "_ref_u", "_ref_v", "_age", "_sent", "_fnum", "_prev")}
-        log.append((chunks, snap))
+        log.append((chunks, snapshot(sess)))
         return chunks
 
     idr_bytes = 0
@@ -147,13 +187,149 @@ def run_sequence(sess: H264EncoderSession, frames) -> list:
 
 def compare_runs(a, b) -> None:
     check(len(a) == len(b), "runs differ in length")
-    for i, ((ca, sa), (cb, sb)) in enumerate(zip(a, b)):
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        ca, sa, cb, sb = ra[0], ra[1], rb[0], rb[1]
         check([dataclasses.astuple(c) for c in ca]
               == [dataclasses.astuple(c) for c in cb],
               f"frame {i}: kernel chunks differ from the plain path's")
         for k in sa:
             check(torch.equal(sa[k], sb[k]),
                   f"frame {i}: {k} differs from the plain path's")
+        check(ra[2:] == rb[2:], f"frame {i}: band geometry differs")
+
+
+# ------------------------------------------- default configuration run
+def scroll_canvas(H: int, W: int):
+    """A desktop taller and wider than the frame (a document with text
+    lines under a window frame), to cut scrolled and panned frames from:
+    frame (oy, ox) is rows oy..oy+H, columns ox..ox+W."""
+    rng = np.random.default_rng(SEED + 1)
+    ch, cw = H + 160, W + 64
+    yy = np.linspace(40, 200, ch, dtype=np.float32)[:, None]
+    xx = np.linspace(0, 40, cw, dtype=np.float32)[None, :]
+    c = np.stack([yy + xx, 0.5 * yy + 60 + 0 * xx, 230 - 0.6 * yy + xx],
+                 -1).astype(np.uint8)
+    # text: lines of 2x2-pixel dots (about a third inked), 6 pixels
+    # high at a 20-pixel pitch, of random length
+    for top in range(40, ch - 40, 20):
+        n = int(rng.integers(100, cw // 2)) // 2
+        glyphs = (rng.random((3, n)) < 0.35).astype(np.uint8)
+        line = np.repeat(np.repeat(glyphs, 2, 0), 2, 1)[..., None]
+        c[top:top + 6, 100:100 + 2 * n] = np.where(
+            line > 0, 30, c[top:top + 6, 100:100 + 2 * n])
+    return c
+
+
+def default_frames(H: int, W: int, vis_h: int):
+    """(name, frame, force) of the default-configuration sequence."""
+    canvas = scroll_canvas(H, W)
+
+    def at(oy, ox=32):
+        f = canvas[oy:oy + H, ox:ox + W].copy()
+        f[vis_h:] = f[vis_h - 1]
+        return f
+    seq = [("idr", at(80), False)]
+    oy = 80
+    for d in (7, 24, -13, 1, -24, 16):          # vertical scrolls
+        oy += d
+        seq.append((f"scroll{d:+d}", at(oy), False))
+    pan = at(oy, 40)                             # content moves 8 px left
+    seq.append(("pan8", pan, False))
+    typing = pan.copy()
+    typing[typing_rows(H), 300:420] = (20, 20, 20)
+    seq.append(("typing", typing, False))
+    seq += [("idle", typing, False), ("idle", typing, False),
+            ("paint_others", typing, False), ("paint_typed", typing, False)]
+    # a theme change: every row brightens
+    bright = np.minimum(typing.astype(np.int32) + 12, 255).astype(np.uint8)
+    seq.append(("full_dirty", bright, False))
+    seq.append(("forced_idr", bright, True))
+    after = bright.copy()
+    after[100:110, 50:300] = (250, 250, 250)
+    seq.append(("p_after_idr", after, False))
+    return seq
+
+
+def typing_rows(H: int) -> slice:
+    """12 pixel rows inside the 64-row stripe at the middle of the frame:
+    what a few typed characters dirty."""
+    top = (H // 2) // 64 * 64 + 20
+    return slice(top, top + 12)
+
+
+def run_default_sequence(sess, seq, check_idle: bool = False) -> list:
+    """-> per frame (chunks, state snapshot, band, last_band_rows). With
+    ``check_idle`` the idle frames must launch the probe and nothing else
+    (the launch counters of the kernel wrappers)."""
+    log = []
+    for name, frame, force in seq:
+        before = dict(_cuda.LAUNCHES)
+        out = sess.encode(frame, force=force)
+        chunks = sess.finalize(out)
+        if check_idle and name == "idle":
+            delta = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                     if v != before[k]}
+            check(out.get("idle") and delta == {"row_damage_probe": 1},
+                  f"idle frame launched {delta}")
+            check(chunks == [], "idle frame sent chunks")
+        log.append((chunks, snapshot(sess), out.get("band"),
+                    sess.last_band_rows))
+    return log
+
+
+def check_default_log(log, seq, sess) -> None:
+    """The sequence did what it was built for: scrolls chose non-zero
+    vectors and whole-frame bands, typing a one-stripe band, the paint-
+    overs their stripes, the full-dirty frame the full band."""
+    g = sess.grid
+    rps = g.rows_per_stripe
+    names = [n for n, _, _ in seq]
+    for i, n in enumerate(names):
+        chunks, snap, band, _ = log[i]
+        if n.startswith("scroll") or n == "pan8":
+            check(band == (0, sess.n_rows), f"{n}: band {band}")
+            check(bool((snap["mv"] != 0).any()), f"{n}: no motion chosen")
+        elif n == "typing" or n == "paint_typed":
+            row0 = typing_rows(g.height).start // 16 // rps * rps
+            check(band == (row0, rps), f"{n}: band {band}")
+            check(len(chunks) == 1, f"{n}: {len(chunks)} chunks")
+        elif n == "full_dirty":
+            check(band == (0, sess.n_rows) and len(chunks) == g.n_stripes,
+                  f"{n}: band {band}")
+        elif n in ("idr", "forced_idr"):
+            check(band is None and all(c.is_idr for c in chunks)
+                  and len(chunks) == g.n_stripes, f"{n}: not a full IDR")
+    dy = {n: int(n[6:]) for n in names if n.startswith("scroll")}
+    for n, d in dy.items():
+        mv = log[names.index(n)][1]["mv"]
+        check(bool((mv[..., 1] == 4 * d).any()),
+              f"{n}: no macroblock chose dy {d}")
+
+
+def full_dirty_equals_stock(settings, seq) -> None:
+    """The 100%-dirty band frame's bytes equal the stock P step with
+    motion on the same input and the same state: a stock session with
+    motion is loaded with the band session's state from before that
+    frame and encodes it."""
+    names = [n for n, _, _ in seq]
+    k = names.index("full_dirty")
+    band = H264EncoderSession(settings)
+    for _, frame, force in seq[:k]:
+        band.finalize(band.encode(frame, force=force))
+    d = port_state.session_state_to_numpy(band)
+    stock = H264EncoderSession(dataclasses.replace(
+        settings, h264_partial_encode=False))
+    d["_age"] = np.minimum(d["_host_age"], 2**31 - 1).astype(np.int32)
+    port_state.session_state_from_numpy(stock, d)
+    frame = seq[k][1]
+    want = stock.finalize(stock.encode(frame))
+    got = band.finalize(band.encode(frame))
+    check([dataclasses.astuple(c) for c in got]
+          == [dataclasses.astuple(c) for c in want],
+          "full-dirty band differs from the stock P step with motion")
+    for key in ("_ref_y", "_ref_u", "_ref_v", "_prev", "_sent", "_fnum"):
+        check(torch.equal(getattr(band, key), getattr(stock, key)),
+              f"full-dirty band: {key} differs from the stock P step")
 
 
 def check_stream(log, sess) -> None:
@@ -236,7 +412,8 @@ def kernel_checks(frames, sess, grown) -> dict:
     l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     flush = (lambda: flush_l2(l2))
     out = {}
-    f0, f1, f2 = (torch.as_tensor(f).to(dev) for f in frames[:3])
+    f0, f1 = (torch.as_tensor(f).to(dev) for f in frames[:2])
+    f2s = torch.roll(f1, -5, 0)                 # f1 scrolled by 5 rows
 
     # K1: csc420_damage (frame f1 against prev f0: some stripes damaged)
     pk, pp = f0.clone(), f0.clone()
@@ -255,48 +432,99 @@ def kernel_checks(frames, sess, grown) -> dict:
                   restore=lambda: prev.copy_(f0))
     by = nbytes(f1, prev, prev, y, u, v, ko[3])
     ops = 40 * (g.height * g.width // 4)          # ~40 flops per quad
-    out["csc420_damage"] = (err, ms, pms, by, ops)
+    out["csc420_damage"] = (err, ms, pms, by, ops, None)
 
-    # K2: both entries; every other stripe sent, so the gate shows
+    # K2: both entries; every other stripe sent, so the gate shows. P
+    # codes frame f2 against the I recon of f1 with K5's prediction
     qp = torch.full((R,), sess.qp, dtype=torch.int32, device=dev)
     qp[::3] = sess.paint_qp
     send = (torch.arange(S, device=dev) % 2 == 0).to(torch.int32)
+    send_rows = send.repeat_interleave(rps)
+    sent_frac = float(send.float().mean())
     zero_ref = [torch.zeros_like(p) for p in (y, u, v)]
-    res = {}
-    for name, plain, base in (("mb_encode_i", HP.mb_encode_i_plain, zero_ref),
-                              ("mb_encode_p0", HP.mb_encode_p0_plain, None)):
-        if base is None:         # P: frame f2 against the I recon of f1
-            base = [t.clone() for t in res["mb_encode_i"][1]]
-            planes = HP.csc420_damage(f2, f1.clone(), S)[:3]
-        else:
-            planes = (y, u, v)
-        kref = [t.clone() for t in base]
-        pref = [t.clone() for t in base]
-        kern = getattr(HP, name)
-        ko = kern(*planes, qp, send, rps, *kref)
-        po = plain(*planes, qp, send, rps, *pref)
-        err = max_abs_err(list(ko) + kref, list(po) + pref)
-        check(err == 0, f"{name} differs from plain (max err {err})")
-        res[name] = (ko, kref)
-        work = [t.clone() for t in base]
+    kref = [t.clone() for t in zero_ref]
+    pref = [t.clone() for t in zero_ref]
+    ko = HP.mb_encode_i(y, u, v, qp, send, rps, *kref)
+    po = HP.mb_encode_i_plain(y, u, v, qp, send, rps, *pref)
+    err = max_abs_err(list(ko) + kref, list(po) + pref)
+    check(err == 0, f"mb_encode_i differs from plain (max err {err})")
+    i_out, i_ref = ko, [t.clone() for t in kref]
+    work = [t.clone() for t in zero_ref]
 
-        def restore(work=work, base=base):
-            for w, b in zip(work, base):
-                w.copy_(b)
-        ms = time_fn(lambda: kern(*planes, qp, send, rps, *work), 20,
-                     restore=restore, flush=flush, hide_launch=True)
-        pms = time_fn(lambda: plain(*planes, qp, send, rps, *work), 3,
-                      restore=restore)
-        # planes and levels move once; the reference planes are written
-        # for the sent stripes only (and read as well in P)
-        sent_frac = float(send.float().mean())
-        by = nbytes(*planes, qp, send, *ko) + int(
-            nbytes(*kref) * sent_frac * (2 if name == "mb_encode_p0" else 1))
-        ops = 1200 * 24 * R * M                   # ~1200 int ops per block
-        out[name] = (err, ms, pms, by, ops)
+    def restore_i():
+        for w, b in zip(work, zero_ref):
+            w.copy_(b)
+    ms = time_fn(lambda: HP.mb_encode_i(y, u, v, qp, send, rps, *work), 20,
+                 restore=restore_i, flush=flush, hide_launch=True)
+    pms = time_fn(lambda: HP.mb_encode_i_plain(y, u, v, qp, send, rps,
+                                               *work), 3, restore=restore_i)
+    # planes and levels move once; the reference planes are written for
+    # the sent stripes only
+    by = nbytes(y, u, v, qp, send, *ko) + int(nbytes(*kref) * sent_frac)
+    out["mb_encode_i"] = (err, ms, pms, by, 1200 * 24 * R * M, None)
+
+    # K5 at the main path's shapes: the 57 default candidates, stripe
+    # windows, a frame scrolled by 5 rows against the I recon
+    cands = scroll_candidates(24, 8)
+    p_planes = HP.csc420_damage(f2s, f1.clone(), S)[:3]
+    win = g.stripe_h
+    ko = motion_select(p_planes[0], *i_ref, qp, cands, win)
+    po = motion_select_plain(p_planes[0], *i_ref, qp, cands, win)
+    err = max_abs_err(ko, po)
+    check(err == 0, f"motion_select differs from plain (max err {err})")
+    check(bool((ko[3] != 0).any()), "K5 check frame chose no motion")
+    ms = time_fn(lambda: motion_select(p_planes[0], *i_ref, qp, cands, win,
+                                       out=ko), 20, flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: motion_select_plain(p_planes[0], *i_ref, qp,
+                                              cands, win), 3)
+    # SAD: a subtract, an absolute value and an add per pixel and
+    # candidate
+    out["motion_select"] = (err, ms, pms,
+                            nbytes(p_planes[0], *i_ref, qp, *ko),
+                            3 * 256 * len(cands) * R * M, None)
+    pred, mv = ko[:3], ko[3]
+
+    # K2-P on K5's prediction, the reference rewritten for sent rows
+    kref = [t.clone() for t in i_ref]
+    pref = [t.clone() for t in i_ref]
+    ko = HP.mb_encode_p(*p_planes, qp, send_rows, *pred, mv, *kref)
+    po = HP.mb_encode_p_plain(*p_planes, qp, send_rows, *pred, mv, *pref)
+    err = max_abs_err(list(ko) + kref, list(po) + pref)
+    check(err == 0, f"mb_encode_p differs from plain (max err {err})")
+    p_out = ko
+    work = [t.clone() for t in i_ref]
+
+    def restore_p():
+        for w, b in zip(work, i_ref):
+            w.copy_(b)
+    ms = time_fn(lambda: HP.mb_encode_p(*p_planes, qp, send_rows, *pred, mv,
+                                        *work), 20, restore=restore_p,
+                 flush=flush, hide_launch=True)
+    pms = time_fn(lambda: HP.mb_encode_p_plain(*p_planes, qp, send_rows,
+                                               *pred, mv, *work), 3,
+                  restore=restore_p)
+    by = nbytes(*p_planes, qp, send_rows, *pred, mv, *ko) + int(
+        nbytes(*kref) * sent_frac)
+    out["mb_encode_p"] = (err, ms, pms, by, 1200 * 24 * R * M, None)
+    res = {"mb_encode_i": (i_out, i_ref), "mb_encode_p": (p_out, kref)}
+
+    # K6: the band path's probe, frame f1 against prev f0
+    ko = HP.row_damage_probe(f1, f0)
+    po = HP.row_damage_probe_plain(f1, f0)
+    err = max_abs_err([ko], [po])
+    check(err == 0, f"row_damage_probe differs from plain (err {err})")
+    check(0 < int(ko.sum()) < R, "K6 check frame should dirty some rows")
+    ms = time_fn(lambda: HP.row_damage_probe(f1, f0), 20, flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: HP.row_damage_probe_plain(f1, f0), 3)
+    lib = time_fn(lambda: (f1 != f0).view(R, -1).any(1), 20, flush=flush,
+                  hide_launch=True)
+    out["row_damage_probe"] = (err, ms, pms, nbytes(f1, f0, ko),
+                               f1.numel(), lib)
 
     # K3 and K4 on the K2 outputs of both modes
-    for intra, key in ((True, "mb_encode_i"), (False, "mb_encode_p0")):
+    for intra, key in ((True, "mb_encode_i"), (False, "mb_encode_p")):
         lv, cbp, hp, hn = res[key][0]
         ko = HP.cavlc_events(lv, cbp, intra)
         po = HP.cavlc_events_plain(lv, cbp, intra)
@@ -307,7 +535,7 @@ def kernel_checks(frames, sess, grown) -> dict:
                          flush=flush, hide_launch=True)
             pms = time_fn(lambda: HP.cavlc_events_plain(lv, cbp, True), 3)
             out["cavlc_events"] = (err, ms, pms, nbytes(lv, cbp, *ko),
-                                   30 * 36 * 27 * R * M)
+                                   30 * 36 * 27 * R * M, None)
         row_hp = sess._hdr_pay if intra else sess._p_hdr_pay
         row_hn = sess._hdr_nb if intra else sess._p_hdr_nb
         row_id = torch.arange(R, dtype=torch.int32, device=dev) % 16
@@ -330,40 +558,114 @@ def kernel_checks(frames, sess, grown) -> dict:
                 pms = time_fn(lambda: HP.pack_stream_plain(*args), 3)
                 out["pack_stream"] = (err, ms, pms,
                                       nbytes(hp, hn, *ko, *k4),
-                                      10 * ko[1].numel())
+                                      10 * ko[1].numel(), None)
     return out
 
 
-def frame_times(settings, frames, reps: int = 7) -> dict:
-    """Host-clock encode+finalize times (ms) of I and P frames at the
-    stock buffer caps. Each rep is a fresh session: an untimed IDR of
-    one frame, then the timed frame (a forced IDR, or a P frame where
-    the text panels change), so no rep meets a paint-over or an
-    overflow that an earlier rep caused."""
-    f2, f3 = (torch.as_tensor(f).cuda() for f in frames[2:4])
+def count_syncs(fn):
+    """-> (fn(), the synchronizing CUDA calls it made, by torch's sync
+    debug mode, each as the innermost line of this repository on the
+    Python stack when it was made, and the torch line that made it)."""
+    where, active = [], [False]
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        # only while fn runs: switching the mode may warn by itself
+        if not active[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()
+                if ("selkies_tpu_torch" in f.filename
+                    or f.filename.endswith("chip_smoke.py"))
+                and f.name not in ("hook", "count_syncs")]
+        at = ours[-1] if ours else None
+        where.append(f"{at.filename.rsplit('/', 2)[-1]}:{at.lineno} "
+                     f"({at.name}) via {filename.rsplit('/', 3)[-1]}:"
+                     f"{lineno}" if at else f"{filename}:{lineno}")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        active[0] = True
+        try:
+            res = fn()
+        finally:
+            active[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    return res, where
+
+
+def sync_checks(settings, dsettings, base, typed) -> dict:
+    """Host syncs inside encode(): none on the stock path (with or
+    without motion), exactly one (the row probe) on every frame of the
+    band path, idle and I frames included."""
     res = {}
-    for kind in ("I", "P"):
+
+    def encode(sess, frame, force=False):
+        out, where = count_syncs(lambda: sess.encode(frame, force=force))
+        sess.finalize(out)
+        return where
+    for name, s in (("stock", settings), ("stock_motion", dataclasses.replace(
+            dsettings, h264_partial_encode=False))):
+        sess = H264EncoderSession(s)
+        sess.finalize(sess.encode(base))
+        res[f"{name}_P"] = encode(sess, typed)
+        res[f"{name}_I"] = encode(sess, typed, True)
+    sess = H264EncoderSession(dsettings)
+    sess.finalize(sess.encode(base))
+    res["band_P"] = encode(sess, typed)
+    res["band_idle"] = encode(sess, typed)
+    res["band_I"] = encode(sess, typed, True)
+    counts = {k: len(v) for k, v in res.items()}
+    want = {k: 1 if k.startswith("band") else 0 for k in res}
+    check(counts == want, f"syncs inside encode {res}, expected {want}")
+    return res
+
+
+def frame_times(settings, cases: dict, reps: int = 7) -> dict:
+    """Host-clock encode and encode+finalize times (ms) at the stock
+    buffer caps. ``cases``: kind -> (setup frame, timed frame, force).
+    Each rep is a fresh session: an untimed IDR of the setup frame, then
+    the timed frame, so no rep meets a paint-over or an overflow that an
+    earlier rep caused."""
+    res = {}
+    for kind, (f_setup, f_timed, force) in cases.items():
         ts, enc = [], []
         for _ in range(reps):
             sess = H264EncoderSession(settings)
-            sess.finalize(sess.encode(f3))
+            sess.finalize(sess.encode(f_setup))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = sess.encode(f2, force=(kind == "I"))
+            out = sess.encode(f_timed, force=force)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             chunks = sess.finalize(out)
             t2 = time.perf_counter()
-            check(chunks and all(c.is_idr == (kind == "I") for c in chunks),
-                  f"timed {kind} frame sent no {kind} chunks")
+            check(chunks and all(c.is_idr == force for c in chunks),
+                  f"timed {kind} frame sent no chunks of its kind")
             check((sess._w_cap, sess._out_cap)
                   == h264_buffer_caps(sess.grid)[1:],
                   "frame timing overflowed the stock buffers")
             enc.append((t1 - t0) * 1e3)
             ts.append((t2 - t0) * 1e3)
         res[kind] = {"encode_ms": statistics.median(enc),
-                     "encode_finalize_ms": statistics.median(ts)}
+                     "encode_finalize_ms": statistics.median(ts),
+                     "band_rows": sess.last_band_rows}
     return res
+
+
+def run_path(name: str, path: tuple, run) -> tuple:
+    """Counters to 0, ``run()``, counters read: every kernel of ``path``
+    must have launched. -> (run's result, launches)."""
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    log = run()
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    print(f"{name} sequence: {len(log)} frames in "
+          f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+    for k in path:
+        check(launches[k] > 0, f"{name} path never launched {k}")
+    return log, launches
 
 
 def main() -> int:
@@ -383,7 +685,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas[{name}]: {line.strip()}")
 
-    settings = CaptureSettings(capture_width=1920, capture_height=1080,
+    # 1. the stock configuration
+    settings = CaptureSettings(capture_width=WIDTH, capture_height=HEIGHT,
                                output_mode="h264", h264_motion_vrange=0,
                                h264_partial_encode=False,
                                paint_over_delay_frames=4)
@@ -392,40 +695,64 @@ def main() -> int:
     g = kern.grid
     frames = desktop_frames(g.height, g.width, settings.capture_height)
     dev_frames = [torch.as_tensor(f).to(kern.device) for f in frames]
-
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    klog = run_sequence(kern, dev_frames)
-    torch.cuda.synchronize()
-    seq_s = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
-    print(f"kernel sequence: {len(klog)} frames in {seq_s:.2f} s; "
-          f"launches {launches}")
-    for name in KERNELS:
-        check(launches[name] > 0, f"main path never launched {name}")
+    klog, stock_launches = run_path("stock", STOCK_PATH,
+                                    lambda: run_sequence(kern, dev_frames))
+    check(stock_launches["motion_select"] == 0
+          and stock_launches["row_damage_probe"] == 0,
+          "the stock path launched K5 or K6")
     check_stream(klog, kern)
-
-    t0 = time.perf_counter()
     plog = run_sequence(plain, dev_frames)
-    torch.cuda.synchronize()
-    print(f"plain sequence: {len(plog)} frames in "
-          f"{time.perf_counter() - t0:.2f} s")
     compare_runs(klog, plog)
-    print("kernel path == plain path: chunks and reference planes, "
+    print("stock: kernel path == plain path: chunks and state, "
           f"{len(klog)} frames")
+
+    # 2. the default configuration: motion search and the band path
+    dsettings = dataclasses.replace(settings, h264_motion_vrange=24,
+                                    h264_motion_hrange=8,
+                                    h264_partial_encode=True)
+    dkern = H264EncoderSession(dsettings)
+    dplain = plain_session(dsettings)
+    seq = [(n, torch.as_tensor(f).to(dkern.device), force)
+           for n, f, force in default_frames(g.height, g.width,
+                                             settings.capture_height)]
+    dlog, launches = run_path(
+        "default", DEFAULT_PATH,
+        lambda: run_default_sequence(dkern, seq, check_idle=True))
+    check_default_log(dlog, seq, dkern)
+    dplog = run_default_sequence(dplain, seq)
+    compare_runs(dlog, dplog)
+    print("default: kernel path == plain path: chunks, state, mv fields, "
+          f"bands, {len(dlog)} frames: "
+          + json.dumps([[n, b, len(c)] for (n, _, _), (c, _, b, _)
+                        in zip(seq, dlog)]))
+    full_dirty_equals_stock(dsettings, seq)
+    print("default: the full-dirty band equals the stock P step with motion")
 
     # the overflow episode grew kern's buffers: time at the stock caps
     stock = H264EncoderSession(settings)
     recs = kernel_checks(frames, stock, (kern._w_cap, kern._out_cap))
-    times = frame_times(settings, frames)
+    f2, f3 = (torch.as_tensor(f).cuda() for f in frames[2:4])
+    times = frame_times(settings, {"I": (f3, f2, True),
+                                   "P": (f3, f2, False)})
+    base = seq[0][1]
+    typed = base.clone()
+    typed[typing_rows(g.height), 300:420] = 20
+    dtimes = frame_times(dsettings, {"I": (base, base, True),
+                                     "scroll_P": (base, seq[1][1], False),
+                                     "typing_P": (base, typed, False)})
+    syncs = sync_checks(settings, dsettings, base, typed)
+    print(f"host syncs inside encode(): {json.dumps(syncs)}")
     print(f"buffer caps: stock w_cap {stock._w_cap} out_cap "
           f"{stock._out_cap}; after the overflow episode w_cap "
           f"{kern._w_cap} out_cap {kern._out_cap}")
-    print(f"frame times (ms, host clock, {g.width}x{g.height}, stock caps): "
-          + json.dumps(times))
+    print(f"frame times, stock configuration (ms, host clock, "
+          f"{g.width}x{g.height}, stock caps): " + json.dumps(times))
+    print(f"frame times, default configuration (ms, host clock, "
+          f"{g.width}x{g.height}, stock caps): " + json.dumps(dtimes))
+    print(f"stock path launches: {json.dumps(stock_launches)}")
     rows = []
     for name, (src, replaces) in KERNELS.items():
-        err, ms, pms, by, ops = recs[name]
+        err, ms, pms, by, ops, lib = recs[name]
         t_bytes = by / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -434,9 +761,11 @@ def main() -> int:
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
-                     "library_ms": None})
+                     "library_ms": lib})
         print(f"  {name}: launches {launches[name]}, {ms:.4f} ms "
-              f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms)")
+              f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
+              + (f", library {lib:.4f} ms" if lib is not None else "")
+              + ")")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,11 @@ module names (``codecs/h264``, ``ops/h264_planes``, ``engine/h264_encoder``
 ``jax`` nor anything of ``selkies_tpu``: what it needs of the reference's
 jax-free modules (CAVLC tables, bitstream headers, settings) is copied.
 
-The slice ported so far is the stock H.264 4:2:0 session on one device
-(IDR + zero-motion P frames, damage gating, paint-over, overflow growth).
-Its device arithmetic runs in four hand-written CUDA kernels for Hopper
+The slices ported so far run the H.264 4:2:0 session on one device in
+the reference's default configuration (scroll motion search, the
+damage-proportional band path) and in its stock one (zero-motion P
+frames): IDR and P frames, damage gating, paint-over, overflow growth.
+Its device arithmetic runs in six hand-written CUDA kernels for Hopper
 (``csrc/``, built on first use by ``ops/_cuda.py``); every kernel has a
 plain PyTorch version beside its wrapper, which the wrapper uses only for
 tensors that lie on the CPU.

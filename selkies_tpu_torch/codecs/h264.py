@@ -1,12 +1,15 @@
 """Host-side H.264 bitstream assembly for the port's sessions.
 
-The subset of selkies_tpu/codecs/h264.py that the stock H.264 session
-needs, copied so the port never imports the JAX package: the bit writer,
-emulation prevention and NAL framing, SPS/PPS, and the per-row slice
-header prefixes that the device stream packer emits as events.
+The subset of selkies_tpu/codecs/h264.py that the H.264 session needs,
+copied so the port never imports the JAX package: the bit writer,
+emulation prevention and NAL framing, SPS/PPS, the per-row slice header
+prefixes that the device stream packer emits as events, and the all-skip
+P slices that the band path stitches in for clean rows.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 
@@ -199,3 +202,37 @@ def p_slice_header_events(mb_w: int, n_rows: int):
                 nb[r, slot] = len(chunk)
     return pay, nb
 
+
+
+def p_slice_header_bits(w: BitWriter, first_mb: int, qp: int,
+                        frame_num: int) -> None:
+    """Non-IDR P-slice header matching write_sps/write_pps choices."""
+    w.ue(first_mb)
+    w.ue(5)               # slice_type P (all slices)
+    w.ue(0)               # pps_id
+    w.put(4, frame_num & 0xF)
+    # poc type 2: nothing
+    w.put(1, 0)           # num_ref_idx_active_override_flag
+    w.put(1, 0)           # ref_pic_list_modification_flag_l0
+    w.put(1, 0)           # adaptive_ref_pic_marking_mode_flag (ref pic)
+    w.se(qp - 26)         # slice_qp_delta
+    w.ue(1)               # disable_deblocking_filter_idc = 1
+
+
+def p_skip_slice_rbsp(first_mb: int, n_mbs: int, qp: int,
+                      frame_num: int) -> bytes:
+    """RBSP of an all-skip P slice: header + ``ue(mb_skip_run == n_mbs)``
+    + stop bit, byte-identical to what the device P step emits for a row
+    with no coded macroblock. Cached on the 16-value frame_num the header
+    encodes (u(4)), so a clean row's bytes recycle every 16 frames."""
+    return _p_skip_slice_cached(first_mb, n_mbs, qp, frame_num & 0xF)
+
+
+@functools.lru_cache(maxsize=4096)
+def _p_skip_slice_cached(first_mb: int, n_mbs: int, qp: int,
+                         frame_num: int) -> bytes:
+    w = BitWriter()
+    p_slice_header_bits(w, first_mb, qp, frame_num)
+    w.ue(n_mbs)
+    w.rbsp_trailing()
+    return w.to_bytes()

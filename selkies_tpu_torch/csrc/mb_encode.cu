@@ -1,13 +1,14 @@
 // K2 mb_encode: per-macroblock transform / quant / dequant / recon for
-// Intra_16x16 IDR frames (mb_encode_i) and zero-MV P frames (mb_encode_p0).
+// Intra_16x16 IDR frames (mb_encode_i) and P frames (mb_encode_p).
 //
 // Replaces selkies_tpu/ops/h264_planes.py:fwd4_planes, inv4_planes,
 // _quant_plane, _dequant_plane, _quant_dc_e, _dequant_ldc_e, _dequant_cdc_e,
 // _had2_parts, _had4_mb, _had2_mb, _merge_pixel_chroma, _dc_scan, the
-// h264_encode_yuv / h264_encode_p_yuv bodies (single zero-MV candidate:
-// quant_all, cdc_chain, cbp / coded gates, deq_gated, chroma_recon), the
-// MB header events of _assemble_frame / _assemble_p_frame, and the
-// send-gated reference advance of engine/h264_encoder.py:build_h264_step_fn.
+// h264_encode_yuv / h264_encode_p_yuv bodies (quant_all, cdc_chain, cbp /
+// coded gates with the motion vector, mvd against the left neighbour,
+// deq_gated, chroma_recon), the MB header events of _assemble_frame /
+// _assemble_p_frame, and the send-gated reference advance of
+// engine/h264_encoder.py:build_h264_step_fn and build_h264_band_step_fn.
 //
 // Bound on the H100: I frames by the serial DC chain (the left-edge
 // dependency runs across the 120 MBs of a row, 68 rows in parallel), P
@@ -21,8 +22,11 @@
 // DC per MB step), then the recon runs in parallel again. The recon is
 // recomputed from the pixels rather than stored between phases. Recon
 // writes go straight into the reference planes for rows whose stripe is
-// sent (in place: in P each lane reads its own reference pixels before it
-// writes them, and no other lane touches them).
+// sent. P frames predict from planes of their own (K5's output) when
+// motion is on, so a vector reaching into another MB never reads a pixel
+// that MB's recon has overwritten; with zero motion the prediction is the
+// reference plane itself, and each lane reads its own 4x4 before it
+// writes it, which no other lane touches.
 #include "h264_common.cuh"
 
 __device__ __forceinline__ void load4x4(const uint8_t* p, int stride, int r0,
@@ -262,17 +266,26 @@ __global__ void mb_encode_i_kernel(const uint8_t* __restrict__ yp,
 }
 
 // ---------------------------------------------------------------- P frames
-__global__ void mb_encode_p0_kernel(const uint8_t* __restrict__ yp,
-                                    const uint8_t* __restrict__ up,
-                                    const uint8_t* __restrict__ vp,
-                                    const int* __restrict__ qp_rows,
-                                    const int* __restrict__ send,
-                                    int rows_per_stripe, uint8_t* ref_y,
-                                    uint8_t* ref_u, uint8_t* ref_v,
-                                    int16_t* __restrict__ lv,
-                                    int* __restrict__ cbp_out,
-                                    int* __restrict__ hdr_pay,
-                                    int* __restrict__ hdr_nb, int R, int M) {
+__device__ __forceinline__ void se_event(int v, int* pay, int* nb) {
+  ue_event(v > 0 ? 2 * v - 1 : -2 * v, pay, nb);
+}
+
+// pred_* may alias ref_* (zero motion, mv null); mv (R, M, 2) quarter-pel
+// (mvx, mvy); send_rows (R,) gates the recon write per MB row.
+__global__ void mb_encode_p_kernel(const uint8_t* __restrict__ yp,
+                                   const uint8_t* __restrict__ up,
+                                   const uint8_t* __restrict__ vp,
+                                   const int* __restrict__ qp_rows,
+                                   const int* __restrict__ send_rows,
+                                   const uint8_t* pred_y,
+                                   const uint8_t* pred_u,
+                                   const uint8_t* pred_v,
+                                   const int* __restrict__ mv,
+                                   uint8_t* ref_y, uint8_t* ref_u,
+                                   uint8_t* ref_v, int16_t* __restrict__ lv,
+                                   int* __restrict__ cbp_out,
+                                   int* __restrict__ hdr_pay,
+                                   int* __restrict__ hdr_nb, int R, int M) {
   const int lane = threadIdx.x & 31;
   const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (g >= R * M) return;                      // whole warp leaves together
@@ -280,15 +293,17 @@ __global__ void mb_encode_p0_kernel(const uint8_t* __restrict__ yp,
   const int W = M * 16, W2 = M * 8;
   const int qp = qp_rows[r];
   const int qpc = K_QPC[clampi(qp, 0, 51)];
-  const bool sent = send[r / rows_per_stripe] != 0;
+  const bool sent = send_rows[r] != 0;
   const bool is_luma = lane < 16, is_chroma = lane >= 16 && lane < 24;
   const int cl = lane - 16, c = is_chroma ? (lane - 16) >> 2 : 0,
             q = (lane - 16) & 3;
   int16_t* lv_mb = lv + static_cast<size_t>(g) * N_BLOCKS * 16;
+  const int mvx = mv ? mv[2 * g] : 0, mvy = mv ? mv[2 * g + 1] : 0;
 
   int x[16], pr[16], w[16], acl[16];
   int r0 = 0, c0 = 0, stride = W, g8 = 0;
   const uint8_t* cur = yp;
+  const uint8_t* pred = pred_y;
   uint8_t* ref = ref_y;
   if (is_luma) {
     const int by = lane >> 2, bx = lane & 3;
@@ -297,6 +312,7 @@ __global__ void mb_encode_p0_kernel(const uint8_t* __restrict__ yp,
   } else if (is_chroma) {
     r0 = 8 * r + 4 * (q >> 1); c0 = 8 * m + 4 * (q & 1); stride = W2;
     cur = c ? vp : up;
+    pred = c ? pred_v : pred_u;
     ref = c ? ref_v : ref_u;
   }
   int lbits = 0;
@@ -304,7 +320,7 @@ __global__ void mb_encode_p0_kernel(const uint8_t* __restrict__ yp,
   int w00 = 0;
   if (is_luma || is_chroma) {
     load4x4(cur, stride, r0, c0, x);
-    load4x4(ref, stride, r0, c0, pr);
+    load4x4(pred, stride, r0, c0, pr);
     for (int k = 0; k < 16; k++) x[k] -= pr[k];
     fwd4(x, w);
     const int qq = is_luma ? qp : qpc;
@@ -338,7 +354,7 @@ __global__ void mb_encode_p0_kernel(const uint8_t* __restrict__ yp,
   const bool has_cdc = __ballot_sync(0xffffffffu, cdc_nz) != 0;
   const int cbp_chroma = has_cac ? 2 : (has_cdc ? 1 : 0);
   const int cbp = cbp_luma | (cbp_chroma << 4);
-  const bool coded = cbp != 0;
+  const bool coded = cbp != 0 || mvx != 0 || mvy != 0;
 
   if (is_chroma) {
     int16_t* slot = lv_mb + (17 + c) * 16;
@@ -369,13 +385,18 @@ __global__ void mb_encode_p0_kernel(const uint8_t* __restrict__ yp,
     cbp_out[g] = cbp;
     int* hp = hdr_pay + static_cast<size_t>(g) * HDR_SLOTS;
     int* hn = hdr_nb + static_cast<size_t>(g) * HDR_SLOTS;
-    const int on = coded ? 1 : 0;
     hp[0] = 0; hn[0] = 0;                      // skip run: the packer's
-    for (int k = 1; k < 4; k++) { hp[k] = on; hn[k] = on; }
-    int p = 0, n = 0;
-    if (coded) ue_event(K_CBP2CODE[cbp], &p, &n);
-    hp[4] = p; hn[4] = n;
-    hp[5] = on; hn[5] = on;
+    for (int k = 1; k < HDR_SLOTS; k++) { hp[k] = 0; hn[k] = 0; }
+    if (coded) {
+      // MV predictor = left neighbour (one slice per MB row, §8.4.1.3)
+      const int lx = (m > 0 && mv) ? mv[2 * g - 2] : 0;
+      const int ly = (m > 0 && mv) ? mv[2 * g - 1] : 0;
+      hp[1] = 1; hn[1] = 1;                    // mb_type P_L0_16x16
+      se_event(mvx - lx, &hp[2], &hn[2]);
+      se_event(mvy - ly, &hp[3], &hn[3]);
+      ue_event(K_CBP2CODE[cbp], &hp[4], &hn[4]);
+      if (cbp != 0) { hp[5] = 1; hn[5] = 1; }  // mb_qp_delta ue(0)
+    }
   }
 }
 
@@ -395,17 +416,18 @@ extern "C" int mb_encode_i(const uint8_t* y, const uint8_t* u,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mb_encode_p0(const uint8_t* y, const uint8_t* u,
-                            const uint8_t* v, const int* qp, const int* send,
-                            int rows_per_stripe, uint8_t* ref_y,
-                            uint8_t* ref_u, uint8_t* ref_v, int16_t* lv,
-                            int* cbp, int* hdr_pay, int* hdr_nb, int R, int M,
-                            void* stream) {
+extern "C" int mb_encode_p(const uint8_t* y, const uint8_t* u,
+                           const uint8_t* v, const int* qp,
+                           const int* send_rows, const uint8_t* pred_y,
+                           const uint8_t* pred_u, const uint8_t* pred_v,
+                           const int* mv, uint8_t* ref_y, uint8_t* ref_u,
+                           uint8_t* ref_v, int16_t* lv, int* cbp, int* hdr_pay,
+                           int* hdr_nb, int R, int M, void* stream) {
   const int per_block = 4;                     // one warp per MB
   const int blocks = (R * M + per_block - 1) / per_block;
-  mb_encode_p0_kernel<<<blocks, 32 * per_block, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      y, u, v, qp, send, rows_per_stripe, ref_y, ref_u, ref_v, lv, cbp,
-      hdr_pay, hdr_nb, R, M);
+  mb_encode_p_kernel<<<blocks, 32 * per_block, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, ref_y, ref_u, ref_v,
+      lv, cbp, hdr_pay, hdr_nb, R, M);
   return static_cast<int>(cudaGetLastError());
 }

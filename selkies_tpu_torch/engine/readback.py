@@ -5,7 +5,8 @@ full-capacity byte buffer; the host fetches only the prefix (or one
 stripe's range) that the per-row lengths say is filled. On a CUDA tensor
 every fetch is a ``non_blocking`` copy into pinned host memory on the
 current stream, completed by a CUDA event; on a CPU tensor it is a view.
-No kernel is involved: readback is a copy.
+No kernel is involved: readback is a copy. :func:`upload` is the other
+direction, for frames and per-frame host inputs.
 """
 
 from __future__ import annotations
@@ -25,6 +26,16 @@ def bucket_for(total: int, floor: int = MIN_BUCKET) -> int:
     while b < total:
         b *= 2
     return b
+
+
+def upload(x, device: torch.device) -> torch.Tensor:
+    """Host data (numpy or a tensor) on ``device``. A CUDA upload of host
+    data is a ``non_blocking`` copy from pinned memory, so it never waits
+    for the device (a pageable copy would synchronise the stream)."""
+    t = torch.as_tensor(x)
+    if device.type != "cuda" or t.device.type == "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:

@@ -4,7 +4,9 @@ The system's counterpart of carrying weights across: a reference
 (selkies_tpu) H.264 session's device state, read out as numpy arrays,
 loads into a port session, which then continues the same streams
 byte for byte — and back. The keys are the reference session's
-attribute names.
+attribute names. On the band path the host age mirror ``_host_age``,
+not the device ``_age``, is the authority between I frames, so it is
+carried too.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ ARRAY_KEYS = {"_prev": torch.uint8, "_age": torch.int32,
               "_sent": torch.int32, "_fnum": torch.int32,
               "_ref_y": torch.uint8, "_ref_u": torch.uint8,
               "_ref_v": torch.uint8}
+#: host arrays of the session (name -> dtype)
+HOST_ARRAY_KEYS = {"_host_age": np.int64}
 #: host scalars of the session
 SCALAR_KEYS = ("qp", "paint_qp", "frame_id", "_w_cap", "_out_cap",
                "_cap_gen", "_force_after_drop")
@@ -25,6 +29,7 @@ SCALAR_KEYS = ("qp", "paint_qp", "frame_id", "_w_cap", "_out_cap",
 def session_state_to_numpy(session) -> dict:
     """Every state array as numpy plus the host scalars."""
     d = {k: getattr(session, k).cpu().numpy() for k in ARRAY_KEYS}
+    d.update({k: getattr(session, k).copy() for k in HOST_ARRAY_KEYS})
     d.update({k: getattr(session, k) for k in SCALAR_KEYS})
     return d
 
@@ -40,6 +45,13 @@ def session_state_from_numpy(session, d: dict) -> None:
             raise ValueError(f"{k}: shape {src.shape}, session has "
                              f"{tuple(dst.shape)}")
         dst.copy_(torch.as_tensor(np.array(src)).to(dtype))
+    for k, dtype in HOST_ARRAY_KEYS.items():
+        # a state without the mirror kept its age on the device
+        src = np.asarray(d.get(k, d["_age"]), dtype)
+        if src.shape != getattr(session, k).shape:
+            raise ValueError(f"{k}: shape {src.shape}, session has "
+                             f"{getattr(session, k).shape}")
+        setattr(session, k, src.copy())
     for k in SCALAR_KEYS:
         if k in d:
             v = d[k]

@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("csc420_damage", "mb_encode", "cavlc_events", "pack_stream",
-           "errors")
+           "motion_select", "row_damage_probe", "errors")
 LIBRARY = "libselkies_cuda.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -41,9 +41,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRIES = {
     "csc420_damage": [_P] * 6 + [_I] * 3,
     "mb_encode_i": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 2,
-    "mb_encode_p0": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 2,
+    "mb_encode_p": [_P] * 16 + [_I] * 2,
     "cavlc_events": [_P] * 4 + [_I] * 3,
     "pack_stream": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6 + [_P] * 5,
+    "motion_select": [_P] * 6 + [_I] * 4 + [_P] * 4,
+    "row_damage_probe": [_P] * 3 + [_I] * 2,
 }
 
 #: launches per C entry since the last :func:`reset_launches`
@@ -133,14 +135,17 @@ def _fn(entry: str):
 
 
 def launch(entry: str, *args) -> None:
-    """Call C entry ``entry`` with tensors as device pointers and ints as
-    C ints, on the current stream of the first tensor's device."""
+    """Call C entry ``entry`` with tensors as pointers (None as a null
+    pointer) and ints as C ints, on the current stream of the first
+    tensor's device."""
     fn = _fn(entry)
     cargs, dev = [], None
     for a in args:
         if isinstance(a, torch.Tensor):
             dev = dev or a.device
             cargs.append(_P(a.data_ptr()))
+        elif a is None:
+            cargs.append(_P(None))
         else:
             cargs.append(_I(int(a)))
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -158,6 +163,7 @@ def render_tables_header() -> str:
 
     from ..codecs import h264_tables as HT
     from .colorspace import _CSC_601_FULL
+    from .h264_encode import MV_LAMBDA_NP
     from .h264_planes import (_CDC_PACK, _CT_PACK, _RB_PACK, _SCAN_RASTER,
                               _TZ_PACK, _TZC_PACK)
 
@@ -185,6 +191,7 @@ def render_tables_header() -> str:
     lines.append(arr("K_TZC", _TZC_PACK))
     lines.append(arr("K_RB", _RB_PACK))
     lines.append(arr("K_CBP2CODE", HT.CBP_INTER_CBP2CODE))
+    lines.append(arr("K_MV_LAMBDA", MV_LAMBDA_NP))
     m = ",".join(float(v).hex() + "f" for v in _CSC_601_FULL.reshape(-1))
     lines.append(f"static __constant__ float K_CSC[9] = {{{m}}};\n")
     return "".join(lines)

@@ -1,4 +1,4 @@
-"""Slot budgets and CAVLC event helpers shared by the plane-layout encoder.
+"""Slot budgets, CAVLC event helpers and the scroll motion search.
 
 The pieces of selkies_tpu/ops/h264_encode.py that ops/h264_planes.py
 imports, in PyTorch: the static per-macroblock slot budgets, the level
@@ -6,14 +6,21 @@ clamp, the frame output tuple, the Exp-Golomb / level event builders,
 the inter quantiser and the block-layout nC gathers. An event is a
 (payload, nbits) pair with the codeword in the LOW ``nbits`` bits of the
 payload; payloads are int64 here (uint32 has no shifts on the CPU).
+
+It also holds the motion search of the P path: the scroll candidate set,
+the MV lambda, and :func:`motion_select`, the wrapper of kernel K5
+(csrc/motion_select.cu) beside its plain version
+:func:`motion_select_plain`.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from . import _cuda
 from .h264_transform import _MF, _POS_CLS
 
 # static per-MB slot budget: header 3, luma DC 36, 16 luma AC x 34,
@@ -138,3 +145,202 @@ def _nc_from_counts_chroma(tc_eff):
     na = torch.where(bx == 0, left_mb[..., None], left_in)
     up_in = _pad_left(tc_eff, 3)
     return _nc_combine(na, up_in, (bx > 0) | (mb > 0), by > 0)
+
+
+# ---------------------------------------------------------------------------
+# motion search (K5): full-pel scroll candidates, SAD + lambda * mv bits
+# ---------------------------------------------------------------------------
+
+# lagrangian for SAD-vs-mvd-bits mode cost, ~2^((qp-12)/6) (x264's SAD
+# lambda curve); integer so device and host selection agree exactly
+MV_LAMBDA_NP = np.round(2.0 ** ((np.arange(52) - 12) / 6.0)).astype(np.int32)
+
+#: most candidates, and the largest |dy| / |dx|, K5 takes
+MAX_CANDIDATES = 128
+MAX_SHIFT = 64
+
+
+def se_bits(v: int) -> int:
+    """Host-side exact bit cost of se(v)."""
+    cn = 2 * v - 1 if v > 0 else -2 * v
+    return 2 * (cn + 1).bit_length() - 1
+
+
+def scroll_candidates(vrange: int = 24, hrange: int = 8) -> tuple:
+    """Static MV candidate set for desktop content: zero MV, every
+    vertical scroll offset up to ``vrange``, power-of-two horizontal pans
+    up to ``hrange``. (dy, dx) full-pel; (0, 0) first so ties prefer the
+    skip-eligible zero vector."""
+    c = [(0, 0)]
+    for d in range(1, vrange + 1):
+        c += [(d, 0), (-d, 0)]
+    d = 1
+    while d <= hrange:
+        c += [(0, d), (0, -d)]
+        d *= 2
+    return tuple(c)
+
+
+def _clip_index(n: int, d: int, device):
+    return torch.as_tensor(np.clip(np.arange(n) + d, 0, n - 1),
+                           device=device)
+
+
+def _vshift(p, dy: int):
+    """(S, win, W): per-window vertical shift with edge clamp — the
+    decoder of a stripe stream clamps at its own picture bound."""
+    if dy == 0:
+        return p
+    return p[:, _clip_index(p.shape[1], dy, p.device), :]
+
+
+def _hshift(p, dx: int):
+    """Horizontal shift with edge clamp (picture width is shared)."""
+    if dx == 0:
+        return p
+    return p[..., _clip_index(p.shape[-1], dx, p.device)]
+
+
+def _shift_chroma(p, dy: int, dx: int):
+    """Chroma prediction for a full-pel luma MV: the half-pel chroma
+    vector as the spec's eighth-sample bilinear (§8.4.2.2.2 with
+    xFracC/yFracC in {0, 4}): a 2- or 4-tap rounding average. ``>>`` and
+    ``&`` on Python ints floor, so dy = -3 gives by = -2, fy = 1."""
+    by, fy = dy >> 1, dy & 1
+    bx, fx = dx >> 1, dx & 1
+
+    def s(a, b):
+        return _hshift(_vshift(p, a), b)
+
+    if not fy and not fx:
+        return s(by, bx)
+    if fy and not fx:
+        return (s(by, bx) + s(by + 1, bx) + 1) >> 1
+    if fx and not fy:
+        return (s(by, bx) + s(by, bx + 1) + 1) >> 1
+    return (s(by, bx) + s(by + 1, bx) + s(by, bx + 1)
+            + s(by + 1, bx + 1) + 2) >> 2
+
+
+def _sad_mb16(diff):
+    """(H, W) absolute differences -> (R, M) per-16x16-MB sums."""
+    H, W = diff.shape
+    return diff.reshape(H // 16, 16, W // 16, 16).sum((1, 3))
+
+
+def motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
+                        win: int, out=None):
+    """Pick one candidate MV per macroblock: argmin (first index on ties)
+    over SAD(luma) + lambda(qp_row) * (se_bits(4dx) + se_bits(4dy)).
+    Vertical shifts clamp inside ``win``-row windows (the stripe), and
+    horizontal ones at the picture width. -> (pred_y, pred_u, pred_v)
+    uint8 and the (R, M, 2) int32 quarter-pel (mvx, mvy) field, copied
+    into ``out`` when it is given."""
+    H, W = cur_y.shape
+    R, M = H // 16, W // 16
+    S = H // win
+    dev = cur_y.device
+    cur = cur_y.to(torch.int32)
+    ry_w = ref_y.to(torch.int32).reshape(S, win, W)
+    ru_w = ref_u.to(torch.int32).reshape(S, win // 2, W // 2)
+    rv_w = ref_v.to(torch.int32).reshape(S, win // 2, W // 2)
+    lam = torch.as_tensor(MV_LAMBDA_NP, device=dev)[
+        torch.clamp(qp_rows.to(torch.int64), 0, 51)]           # (R,)
+
+    costs = []
+    for dy, dx in candidates:
+        sh = _hshift(_vshift(ry_w, dy), dx).reshape(H, W)
+        bits = se_bits(4 * dx) + se_bits(4 * dy)
+        costs.append(_sad_mb16((cur - sh).abs()) + lam[:, None] * bits)
+    sel = torch.argmin(torch.stack(costs), 0)                   # (R, M)
+
+    sel_y = sel.repeat_interleave(16, 0).repeat_interleave(16, 1)
+    sel_c = sel.repeat_interleave(8, 0).repeat_interleave(8, 1)
+    pred_y = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    pred_u = torch.zeros((H // 2, W // 2), dtype=torch.int32, device=dev)
+    pred_v = torch.zeros_like(pred_u)
+    for k, (dy, dx) in enumerate(candidates):
+        pred_y = torch.where(
+            sel_y == k, _hshift(_vshift(ry_w, dy), dx).reshape(H, W), pred_y)
+        pred_u = torch.where(
+            sel_c == k, _shift_chroma(ru_w, dy, dx).reshape(H // 2, W // 2),
+            pred_u)
+        pred_v = torch.where(
+            sel_c == k, _shift_chroma(rv_w, dy, dx).reshape(H // 2, W // 2),
+            pred_v)
+    cand_q = torch.as_tensor(np.asarray(candidates, np.int32)[:, ::-1] * 4,
+                             device=dev)
+    res = (pred_y.to(torch.uint8), pred_u.to(torch.uint8),
+           pred_v.to(torch.uint8), cand_q[sel].contiguous())
+    if out is None:
+        return res
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return tuple(out)
+
+
+def candidate_table(candidates) -> torch.Tensor:
+    """(K, 2) int32 (dy, dx) host table that K5 reads while it is
+    launched (it travels as a kernel argument, not as device memory)."""
+    c = np.asarray(candidates, np.int32).reshape(-1, 2)
+    if not 1 <= len(c) <= MAX_CANDIDATES or np.abs(c).max() > MAX_SHIFT:
+        raise ValueError(f"K5 takes 1..{MAX_CANDIDATES} candidates with "
+                         f"|dy|, |dx| <= {MAX_SHIFT}")
+    return torch.from_numpy(np.ascontiguousarray(c))
+
+
+def motion_select(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
+                  win: int, out=None):
+    """K5 (csrc/motion_select.cu) for CUDA tensors, else
+    :func:`motion_select_plain`; same contract. ``out`` = (pred_y,
+    pred_u, pred_v, mv) preallocated outputs (the session's scratch); the
+    prediction never lands in the reference planes, which the P coder
+    rewrites afterwards."""
+    H, W = cur_y.shape
+    R, M = H // 16, W // 16
+    dev = cur_y.device
+    if H % 16 or W % 16 or win % 16 or H % win:
+        raise ValueError("planes must tile into MBs and ``win``-row windows")
+    for t, n, shp in ((cur_y, "cur_y", (H, W)), (ref_y, "ref_y", (H, W)),
+                      (ref_u, "ref_u", (H // 2, W // 2)),
+                      (ref_v, "ref_v", (H // 2, W // 2))):
+        _check(t, n, torch.uint8, shp, dev)
+    _check(qp_rows, "qp_rows", torch.int32, (R,), dev)
+    table = candidate_table(candidates)
+    if _on_cpu(cur_y):
+        return motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows,
+                                   candidates, win, out)
+    if out is None:
+        out = (torch.empty((H, W), dtype=torch.uint8, device=dev),
+               torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev),
+               torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev),
+               torch.empty((R, M, 2), dtype=torch.int32, device=dev))
+    for t, n, dt, shp in zip(out, ("pred_y", "pred_u", "pred_v", "mv"),
+                             (torch.uint8,) * 3 + (torch.int32,),
+                             ((H, W), (H // 2, W // 2), (H // 2, W // 2),
+                              (R, M, 2))):
+        _check(t, n, dt, shp, dev)
+    _cuda.launch("motion_select", cur_y, ref_y, ref_u, ref_v, qp_rows,
+                 table, len(table), H, W, win, *out)
+    return tuple(out)
+
+
+def _on_cpu(t) -> bool:
+    """True for a CPU tensor (plain version); False for CUDA (kernel)."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return False
+
+
+def _check(t, name, dtype, shape, device):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

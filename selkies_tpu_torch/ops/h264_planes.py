@@ -1,14 +1,14 @@
-"""Plane-layout H.264 4:2:0 encode in PyTorch, and its four CUDA kernels.
+"""Plane-layout H.264 4:2:0 encode in PyTorch, and its CUDA kernels.
 
-The counterpart of selkies_tpu/ops/h264_planes.py for the stock session
-(Intra_16x16 IDR frames and zero-motion P frames, one slice per MB row).
-Two layers live here:
+The counterpart of selkies_tpu/ops/h264_planes.py for the 4:2:0 session
+(Intra_16x16 IDR frames and P frames with scroll motion, one slice per
+MB row). Two layers live here:
 
 1. The reference's plane functions as plain PyTorch, same names and
    layouts (``fwd4_planes``, ``_quant_plane``, ``_dc_scan``,
    ``cavlc_events_planes``, ``_EventSink`` ...). They are exact integer
    ports; the tests hold each one equal to its JAX original.
-2. The four kernels of the session's main path, each a wrapper that
+2. The kernels of the session's main path, each a wrapper that
    launches a hand-written CUDA kernel for a CUDA tensor and runs its
    plain version (built from layer 1) for a CPU tensor:
 
@@ -16,11 +16,14 @@ Two layers live here:
    ``csc420_damage`` (K1)    RGB -> Y/U/V 4:2:0, per-stripe damage flags,
                              ``prev`` updated in place
    ``mb_encode_i`` /         per-MB transforms, quant, dequant, recon
-   ``mb_encode_p0`` (K2)     (send-gated, into the reference planes in
-                             place), level blocks, MB header events
+   ``mb_encode_p`` (K2)      (send-gated, into the reference planes in
+                             place), level blocks, MB header events (P:
+                             residual against K5's prediction, se(mvd))
    ``cavlc_events`` (K3)     per-block CAVLC (payload, nbits) slots
    ``pack_stream`` (K4)      row bit layout, u32 words, bytes, the one
                              ragged byte buffer and both overflow flags
+   ``motion_select`` (K5)    in ops/h264_encode.py: scroll motion search
+   ``row_damage_probe`` (K6) per-MB-row damage flags of the band path
    ========================  ===========================================
 
 Kernel layouts (R MB rows, M MB columns):
@@ -53,7 +56,8 @@ from ..codecs import h264_tables as HT
 from . import _cuda
 from .colorspace import rgb_to_ycbcr
 from .h264_encode import (H264FrameOut, LEVEL_CLAMP, P_SLOTS_MB, SLOTS_MB,
-                          _level_event, _ue_event)
+                          _check, _level_event, _on_cpu, _se_event,
+                          _ue_event, motion_select, motion_select_plain)
 from .h264_transform import _MF, _POS_CLS, _QPC, _V, ZIGZAG4
 from .stripes import concat_stripe_bytes, words_to_bytes_device
 
@@ -578,27 +582,6 @@ def _hdr_tensor(cols, R, M, dev):
     return pay.to(torch.int32), nb.to(torch.int32)
 
 
-def _check(t, name, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _on_cpu(t) -> bool:
-    """True for a CPU tensor (plain version); False for CUDA (kernel)."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
-    return False
-
-
 # ---------------------------------------------------------------------------
 # K1: colour conversion + damage + prev update
 # ---------------------------------------------------------------------------
@@ -635,7 +618,33 @@ def csc420_damage(frame, prev, n_stripes: int):
 
 
 # ---------------------------------------------------------------------------
-# K2: per-MB transforms / quant / recon (I and zero-MV P)
+# K6: per-MB-row damage probe (the partial path's one pre-dispatch sync)
+# ---------------------------------------------------------------------------
+
+def row_damage_probe_plain(frame, prev):
+    """(H, W, 3) uint8 frame and prev -> (R,) int32, 1 where any byte of
+    the MB row differs (the reference's ``_jitted_row_damage_probe``)."""
+    R = frame.shape[0] // 16
+    return (frame != prev).reshape(R, -1).any(1).to(torch.int32)
+
+
+def row_damage_probe(frame, prev):
+    """K6 (csrc/row_damage_probe.cu) for CUDA tensors, else
+    :func:`row_damage_probe_plain`."""
+    H, W = frame.shape[0], frame.shape[1]
+    _check(frame, "frame", torch.uint8, (H, W, 3), frame.device)
+    _check(prev, "prev", torch.uint8, (H, W, 3), frame.device)
+    if H % 16:
+        raise ValueError("frame height must tile into MB rows")
+    if _on_cpu(frame):
+        return row_damage_probe_plain(frame, prev)
+    out = torch.empty((H // 16,), dtype=torch.int32, device=frame.device)
+    _cuda.launch("row_damage_probe", frame, prev, out, H // 16, 48 * W)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: per-MB transforms / quant / recon (I and P)
 # ---------------------------------------------------------------------------
 
 def _qpc_of(qp):
@@ -726,12 +735,16 @@ def mb_encode_i_plain(y, u, v, qp, send, rows_per_stripe: int,
 _CBP2CODE = HT.CBP_INTER_CBP2CODE
 
 
-def mb_encode_p0_plain(y, u, v, qp, send, rows_per_stripe: int,
-                       ref_y, ref_u, ref_v):
-    """P_L0_16x16 zero-MV / P_Skip MB coding against the reference planes
-    (the reference's ``h264_encode_p_yuv`` single-candidate branch).
-    -> (lv, cbp, hdr_pay, hdr_nb); recon written into ``ref_*`` in place
-    for the rows of stripes with ``send`` set."""
+def mb_encode_p_plain(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv,
+                      ref_y, ref_u, ref_v):
+    """P_L0_16x16 / P_Skip MB coding against a prediction (the
+    reference's ``h264_encode_p_yuv`` body, motion branch included):
+    residual against ``pred_*``, ``coded = (cbp != 0) | mv_nz``, and
+    ``mvd = mv - left neighbour`` as se() header events. ``mv`` (R, M, 2)
+    quarter-pel (mvx, mvy), or None for zero motion, where ``pred_*`` may
+    be the reference planes themselves. -> (lv, cbp, hdr_pay, hdr_nb);
+    the recon is written into ``ref_*`` in place for the MB rows with
+    ``send_rows`` set, after the whole prediction has been read."""
     H, W = y.shape
     R, M = H // 16, W // 16
     dev = y.device
@@ -740,7 +753,10 @@ def mb_encode_p0_plain(y, u, v, qp, send, rows_per_stripe: int,
     qp_by = qp.repeat_interleave(4)[:, None]
     qpc_by = qpc.repeat_interleave(2)[:, None]
     qpc_rm = qpc[:, None]
-    pred_y, pred_u, pred_v = ref_y.to(I64), ref_u.to(I64), ref_v.to(I64)
+    pred_y, pred_u, pred_v = pred_y.to(I64), pred_u.to(I64), pred_v.to(I64)
+    if mv is None:
+        mv = torch.zeros((R, M, 2), dtype=I64, device=dev)
+    mv = mv.to(I64)
 
     wy = fwd4_planes(y.to(I64) - pred_y)
     wu = fwd4_planes(u.to(I64) - pred_u)
@@ -776,7 +792,7 @@ def mb_encode_p0_plain(y, u, v, qp, send, rows_per_stripe: int,
     has_cdc = sum(cl.abs() for cl in clvl_u + clvl_v) > 0
     cbp_chroma = torch.where(has_cac, 2, torch.where(has_cdc, 1, 0))
     cbp = cbp_luma | (cbp_chroma << 4)
-    coded = cbp != 0
+    coded = (cbp != 0) | (mv != 0).any(-1)
     lv = torch.cat([
         torch.zeros((R, M, 1, 16), dtype=I64, device=dev),
         lv_y[:, :, _SCAN_RASTER],
@@ -784,12 +800,18 @@ def mb_encode_p0_plain(y, u, v, qp, send, rows_per_stripe: int,
                             torch.stack(clvl_v, -1)], 2)),
         _pad16(lv_u), _pad16(lv_v)], 2).to(torch.int16)
 
+    # MV predictor = left neighbour (one slice per MB row, §8.4.1.3)
+    mvd = mv - _pad_left_mb(mv)
     one = torch.ones((R, M), dtype=I64, device=dev)
     on = coded.to(I64)
     cbp_pay, cbp_nb = _ue_event(_t(_CBP2CODE, dev)[cbp])
+    mx_pay, mx_nb = _se_event(mvd[..., 0])
+    my_pay, my_nb = _se_event(mvd[..., 1])
     hdr_pay, hdr_nb = _hdr_tensor([
         (one, torch.zeros_like(one)),       # skip run: the packer's
-        (one, on), (one, on), (one, on),    # mb_type, mvd x, mvd y
+        (one, on),                          # mb_type P_L0_16x16
+        (mx_pay, torch.where(coded, mx_nb, 0)),
+        (my_pay, torch.where(coded, my_nb, 0)),
         (cbp_pay, torch.where(coded, cbp_nb, 0)),
         (one, (coded & (cbp != 0)).to(I64))], R, M, dev)
 
@@ -820,7 +842,6 @@ def mb_encode_p0_plain(y, u, v, qp, send, rows_per_stripe: int,
         rec = [[_clip1(pred[i::4, j::4] + ((inv[i][j] + 32) >> 6))
                 for j in range(4)] for i in range(4)]
         return _merge_planes(rec, 4, 4)
-    send_rows = send.repeat_interleave(rows_per_stripe)
     rec_u = chroma_recon(acl_u, dcC_u, pred_u)
     rec_v = chroma_recon(acl_v, dcC_v, pred_v)
     _gate_rows(_merge_planes(rec_y, 4, 4), ref_y, send_rows, 16)
@@ -829,30 +850,45 @@ def mb_encode_p0_plain(y, u, v, qp, send, rows_per_stripe: int,
     return lv, cbp.to(torch.int32), hdr_pay, hdr_nb
 
 
+def _pad_left_mb(mv):
+    """(R, M, 2) -> each MB's left neighbour's vector, zero at column 0."""
+    return torch.cat([torch.zeros_like(mv[:, :1]), mv[:, :-1]], 1)
+
+
+def _check_planes(y, pairs):
+    H, W = y.shape
+    if H % 16 or W % 16:
+        raise ValueError("planes must tile into 16x16 MBs")
+    for t, n in pairs:
+        shp = (H, W) if n.endswith("y") else (H // 2, W // 2)
+        _check(t, n, torch.uint8, shp, y.device)
+
+
 def _mb_encode(name, plain, y, u, v, qp, send, rows_per_stripe,
                ref_y, ref_u, ref_v):
     H, W = y.shape
     dev = y.device
     R, M = H // 16, W // 16
-    if H % 16 or W % 16 or R % rows_per_stripe:
-        raise ValueError("planes must tile into 16x16 MBs and stripes")
+    if R % rows_per_stripe:
+        raise ValueError("MB rows must tile into stripes")
     S = R // rows_per_stripe
-    for t, n, shp in ((y, "y", (H, W)), (u, "u", (H // 2, W // 2)),
-                      (v, "v", (H // 2, W // 2)), (ref_y, "ref_y", (H, W)),
-                      (ref_u, "ref_u", (H // 2, W // 2)),
-                      (ref_v, "ref_v", (H // 2, W // 2))):
-        _check(t, n, torch.uint8, shp, dev)
+    _check_planes(y, ((y, "y"), (u, "u"), (v, "v"), (ref_y, "ref_y"),
+                      (ref_u, "ref_u"), (ref_v, "ref_v")))
     _check(qp, "qp", torch.int32, (R,), dev)
     _check(send, "send", torch.int32, (S,), dev)
     if _on_cpu(y):
         return plain(y, u, v, qp, send, rows_per_stripe, ref_y, ref_u, ref_v)
-    lv = torch.empty((R, M, N_BLOCKS, 16), dtype=torch.int16, device=dev)
-    cbp = torch.empty((R, M), dtype=torch.int32, device=dev)
-    hdr_pay = torch.empty((R, M, HDR_SLOTS), dtype=torch.int32, device=dev)
-    hdr_nb = torch.empty((R, M, HDR_SLOTS), dtype=torch.int32, device=dev)
+    lv, cbp, hdr_pay, hdr_nb = _mb_outputs(R, M, dev)
     _cuda.launch(name, y, u, v, qp, send, rows_per_stripe, ref_y, ref_u,
                  ref_v, lv, cbp, hdr_pay, hdr_nb, R, M)
     return lv, cbp, hdr_pay, hdr_nb
+
+
+def _mb_outputs(R, M, dev):
+    return (torch.empty((R, M, N_BLOCKS, 16), dtype=torch.int16, device=dev),
+            torch.empty((R, M), dtype=torch.int32, device=dev),
+            torch.empty((R, M, HDR_SLOTS), dtype=torch.int32, device=dev),
+            torch.empty((R, M, HDR_SLOTS), dtype=torch.int32, device=dev))
 
 
 def mb_encode_i(y, u, v, qp, send, rows_per_stripe: int, ref_y, ref_u,
@@ -863,12 +899,29 @@ def mb_encode_i(y, u, v, qp, send, rows_per_stripe: int, ref_y, ref_u,
                       rows_per_stripe, ref_y, ref_u, ref_v)
 
 
-def mb_encode_p0(y, u, v, qp, send, rows_per_stripe: int, ref_y, ref_u,
-                 ref_v):
-    """K2, zero-MV P entry (csrc/mb_encode.cu:mb_encode_p0) for CUDA
-    tensors, else :func:`mb_encode_p0_plain`."""
-    return _mb_encode("mb_encode_p0", mb_encode_p0_plain, y, u, v, qp, send,
-                      rows_per_stripe, ref_y, ref_u, ref_v)
+def mb_encode_p(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, ref_y,
+                ref_u, ref_v):
+    """K2, P entry (csrc/mb_encode.cu:mb_encode_p) for CUDA tensors, else
+    :func:`mb_encode_p_plain`; same contract. ``send_rows`` (R,) int32 is
+    the per-MB-row gate of the reference advance."""
+    H, W = y.shape
+    dev = y.device
+    R, M = H // 16, W // 16
+    _check_planes(y, ((y, "y"), (u, "u"), (v, "v"), (pred_y, "pred_y"),
+                      (pred_u, "pred_u"), (pred_v, "pred_v"),
+                      (ref_y, "ref_y"), (ref_u, "ref_u"), (ref_v, "ref_v")))
+    _check(qp, "qp", torch.int32, (R,), dev)
+    _check(send_rows, "send_rows", torch.int32, (R,), dev)
+    if mv is not None:
+        _check(mv, "mv", torch.int32, (R, M, 2), dev)
+    if _on_cpu(y):
+        return mb_encode_p_plain(y, u, v, qp, send_rows, pred_y, pred_u,
+                                 pred_v, mv, ref_y, ref_u, ref_v)
+    lv, cbp, hdr_pay, hdr_nb = _mb_outputs(R, M, dev)
+    _cuda.launch("mb_encode_p", y, u, v, qp, send_rows, pred_y, pred_u,
+                 pred_v, mv, ref_y, ref_u, ref_v, lv, cbp, hdr_pay, hdr_nb,
+                 R, M)
+    return lv, cbp, hdr_pay, hdr_nb
 
 
 # ---------------------------------------------------------------------------
@@ -1098,18 +1151,35 @@ def pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb,
 # ---------------------------------------------------------------------------
 
 class StepOps(NamedTuple):
-    """The four kernels of the main path, or their plain versions."""
+    """The kernels of the main path, or their plain versions."""
     csc420_damage: object
     mb_encode_i: object
-    mb_encode_p0: object
+    mb_encode_p: object
     cavlc_events: object
     pack_stream: object
+    motion_select: object
+    row_damage_probe: object
 
 
-KERNEL_OPS = StepOps(csc420_damage, mb_encode_i, mb_encode_p0, cavlc_events,
-                     pack_stream)
+KERNEL_OPS = StepOps(csc420_damage, mb_encode_i, mb_encode_p, cavlc_events,
+                     pack_stream, motion_select, row_damage_probe)
 PLAIN_OPS = StepOps(csc420_damage_plain, mb_encode_i_plain,
-                    mb_encode_p0_plain, cavlc_events_plain, pack_stream_plain)
+                    mb_encode_p_plain, cavlc_events_plain, pack_stream_plain,
+                    motion_select_plain, row_damage_probe_plain)
+
+
+def p_rows(ops: StepOps, y, u, v, qp, send_rows, ref, candidates, win: int,
+           scratch=None):
+    """K5 (when ``candidates`` is given) then K2-P over planes of whole MB
+    rows; the recon lands in ``ref`` for the rows with ``send_rows`` set.
+    The prediction is complete in ``scratch`` (or fresh planes) before K2
+    rewrites ``ref``. -> K2-P's (lv, cbp, hdr_pay, hdr_nb)."""
+    if candidates:
+        *pred, mv = ops.motion_select(y, *ref, qp, candidates, win,
+                                      out=scratch)
+    else:
+        pred, mv = ref, None
+    return ops.mb_encode_p(y, u, v, qp, send_rows, *pred, mv, *ref)
 
 
 def _as_tensor(x, device):
@@ -1161,18 +1231,22 @@ def h264_encode_yuv(yf, uf, vf, qp, header_pay, header_nb, e_cap: int,
 
 def h264_encode_p_yuv(yf, uf, vf, ref_y, ref_u, ref_v, qp, header_pay,
                       header_nb, frame_num, e_cap: int, w_cap: int,
-                      device=None):
-    """The reference's plane-layout P encoder with its single zero-MV
-    candidate (no motion search: ROADMAP A7), through K2 -> K3 -> K4.
+                      candidates: tuple = ((0, 0),),
+                      stripe_rows: int | None = None, device=None):
+    """The reference's plane-layout P encoder, through the main path's
+    kernels: K5 when ``candidates`` holds more than the zero vector (its
+    windows are ``16 * (stripe_rows or R)`` rows), then K2 -> K3 -> K4.
     The reference planes are copied, not updated. ``device`` as for
     :func:`h264_encode_yuv`."""
     (y, u, v), qp, hp, hn, fn = _frame_args(yf, uf, vf, qp, header_pay,
                                             header_nb, frame_num, device)
     R = y.shape[0] // 16
-    send = torch.ones((1,), dtype=torch.int32, device=y.device)
+    send = torch.ones((R,), dtype=torch.int32, device=y.device)
     ref = [_as_tensor(p, y.device).to(torch.uint8).clone()
            for p in (ref_y, ref_u, ref_v)]
-    lv, cbp, hdr_pay, hdr_nb = mb_encode_p0(y, u, v, qp, send, R, *ref)
+    lv, cbp, hdr_pay, hdr_nb = p_rows(
+        KERNEL_OPS, y, u, v, qp, send, ref,
+        candidates if len(candidates) > 1 else None, 16 * (stripe_rows or R))
     ev_pay, ev_nb = cavlc_events(lv, cbp, False)
     st = pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, hp, hn, fn, qp, False,
                      e_cap, w_cap, R * w_cap * 4)

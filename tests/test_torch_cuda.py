@@ -3,8 +3,10 @@
 Needs a CUDA card (marker ``cuda``; skipped elsewhere, decided inside the
 fixture). Run on the card with ``python -m pytest tests/test_torch_cuda.py
 -m cuda``. Each kernel gets the same inputs as its plain version at small
-geometries (one and several stripes, per-row qp, half the stripes sent)
-and must match it exactly, overflow flags included. Tolerance: 0.
+geometries (one and several stripes, per-row qp, half the stripes sent,
+scrolled and panned content for the motion search, neighbouring
+macroblocks with different vectors, an unaligned probe input) and must
+match it exactly, overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from selkies_tpu_torch.codecs import h264 as hcodec
+from selkies_tpu_torch.ops import h264_encode as TE
 from selkies_tpu_torch.ops import h264_planes as HP
 
 pytestmark = pytest.mark.cuda
@@ -66,21 +69,97 @@ def test_csc420_damage(dev, geom):
           list(HP.csc420_damage_plain(f1, pp, H // sh)) + [pp])
 
 
+def _p_call(p_fn, planes, qp, send, rps, ref, cands):
+    """K2-P (kernel or plain) with the prediction of K5 (zero motion: the
+    reference planes themselves, updated in place)."""
+    send_rows = send.repeat_interleave(rps)
+    if cands is None:
+        return p_fn(*planes, qp, send_rows, *ref, None, *ref)
+    *pred, mv = TE.motion_select_plain(planes[0], *ref, qp, cands, 16 * rps)
+    return p_fn(*planes, qp, send_rows, *pred, mv, *ref)
+
+
 @pytest.mark.parametrize("geom", GEOMS)
-@pytest.mark.parametrize("mode", ["i", "p0"])
+@pytest.mark.parametrize("mode", ["i", "p0", "p"])
 def test_mb_encode(dev, geom, mode):
     S, rps, planes, qp, send, ref, _ = _stage(dev, *geom)
-    if mode == "p0":
-        base = [p.clone() for p in ref]
-        planes = tuple(255 - p for p in planes)
-    else:
+    if mode == "i":
         base = [torch.zeros_like(p) for p in planes]
+    else:
+        base = [p.clone() for p in ref]
+        planes = tuple(255 - p for p in planes) if mode == "p0" else tuple(
+            torch.roll(p, (-2, 1), (0, 1)) for p in planes)
     kref = [b.clone() for b in base]
     pref = [b.clone() for b in base]
-    kern = getattr(HP, f"mb_encode_{mode}")
-    plain = getattr(HP, f"mb_encode_{mode}_plain")
-    _same(list(kern(*planes, qp, send, rps, *kref)) + kref,
-          list(plain(*planes, qp, send, rps, *pref)) + pref)
+    if mode == "i":
+        ko = HP.mb_encode_i(*planes, qp, send, rps, *kref)
+        po = HP.mb_encode_i_plain(*planes, qp, send, rps, *pref)
+    else:
+        cands = None if mode == "p0" else TE.scroll_candidates(4, 2)
+        ko = _p_call(HP.mb_encode_p, planes, qp, send, rps, kref, cands)
+        po = _p_call(HP.mb_encode_p_plain, planes, qp, send, rps, pref,
+                     cands)
+    _same(list(ko) + kref, list(po) + pref)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("cands", ["small", "default"])
+def test_motion_select(dev, geom, cands):
+    """K5 against its plain version: a scrolled and a panned half, per-row
+    qp, windows of one stripe (clamping at both window edges and the
+    right picture edge)."""
+    H, W, sh = geom
+    cands = TE.scroll_candidates(4, 2) if cands == "small" \
+        else TE.scroll_candidates()
+    S, rps, planes, qp, send, ref, _ = _stage(dev, *geom)
+    ref = [p.clone() for p in planes]
+    cur = torch.roll(planes[0], -3, 0)
+    cur[:, W // 2:] = torch.roll(planes[0], -2, 1)[:, W // 2:]
+    _same(TE.motion_select(cur, *ref, qp, cands, sh),
+          TE.motion_select_plain(cur, *ref, qp, cands, sh))
+
+
+def test_motion_then_p_coder_with_neighbouring_vectors(dev):
+    """Neighbouring macroblocks with different non-zero vectors: K5 then
+    K2-P rewriting the reference in place equal the plain versions, in
+    levels, headers and the reference planes after the frame."""
+    H, W, sh = 64, 128, 32
+    rng = np.random.default_rng(3)
+    y = torch.as_tensor(rng.integers(0, 256, (H, W), dtype=np.uint8),
+                        device=dev)
+    u, v = (torch.as_tensor(rng.integers(0, 256, (H // 2, W // 2),
+                                         dtype=np.uint8), device=dev)
+            for _ in range(2))
+    cur = torch.roll(y, -3, 0)
+    cur[:, 32:64] = torch.roll(y, -2, 1)[:, 32:64]
+    cur[:, 64:96] = torch.roll(y, 4, 0)[:, 64:96]
+    qp = torch.full((H // 16,), 28, dtype=torch.int32, device=dev)
+    send = torch.ones((H // 16,), dtype=torch.int32, device=dev)
+    cands = TE.scroll_candidates(4, 2)
+    outs = []
+    for sel, p_fn in ((TE.motion_select, HP.mb_encode_p),
+                      (TE.motion_select_plain, HP.mb_encode_p_plain)):
+        ref = [y.clone(), u.clone(), v.clone()]
+        *pred, mv = sel(cur, *ref, qp, cands, sh)
+        outs.append(list(p_fn(cur, u, v, qp, send, *pred, mv, *ref))
+                    + [mv] + ref)
+    mv = outs[1][4]
+    assert ((mv[:, 1:] != mv[:, :-1]).any(-1)
+            & (mv[:, 1:] != 0).any(-1) & (mv[:, :-1] != 0).any(-1)).any()
+    _same(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_row_damage_probe(dev, geom):
+    H, W, sh = geom
+    f0, f1 = _frames(dev, H, W)
+    for frame in (f0, f1, 255 - f0):
+        _same([HP.row_damage_probe(frame, f0)],
+              [HP.row_damage_probe_plain(frame, f0)])
+    # a view 3 bytes into the frame takes the kernel's unaligned path
+    a = f0.reshape(-1)[3:3 + H * W * 3 - 48 * W].reshape(H - 16, W, 3)
+    b = f1.reshape(-1)[3:3 + H * W * 3 - 48 * W].reshape(H - 16, W, 3)
+    _same([HP.row_damage_probe(a, b)], [HP.row_damage_probe_plain(a, b)])
 
 
 @pytest.mark.parametrize("geom", GEOMS)
@@ -119,11 +198,14 @@ def test_chain_on_noise_at_random_qp(dev, seed):
     for intra, frame in ((True, f0), (False, f1)):
         planes = HP.csc420_damage_plain(frame, f0.clone(), S)[:3]
         kref = [r.clone() for r in ref]
-        kern = HP.mb_encode_i if intra else HP.mb_encode_p0
-        plain = HP.mb_encode_i_plain if intra else HP.mb_encode_p0_plain
-        ko = kern(*planes, qp, send, rps, *kref)
-        _same(list(ko) + kref, list(plain(*planes, qp, send, rps, *ref))
-              + ref)
+        if intra:
+            ko = HP.mb_encode_i(*planes, qp, send, rps, *kref)
+            po = HP.mb_encode_i_plain(*planes, qp, send, rps, *ref)
+        else:
+            ko = _p_call(HP.mb_encode_p, planes, qp, send, rps, kref, None)
+            po = _p_call(HP.mb_encode_p_plain, planes, qp, send, rps, ref,
+                         None)
+        _same(list(ko) + kref, list(po) + ref)
         lv, cbp, hp, hn = ko
         ev = HP.cavlc_events(lv, cbp, intra)
         _same(ev, HP.cavlc_events_plain(lv, cbp, intra))

@@ -1,10 +1,11 @@
-"""Whole I and zero-MV P frames of the port against the JAX package.
+"""Whole I and P frames of the port against the JAX package.
 
 h264_encode_yuv / h264_encode_p_yuv run the main path's kernels (their
-plain versions on the CPU: K2 -> K3 -> K4) and must give the reference's
-words, bit totals, overflow flag and reconstruction at qp 8/28/48 and
-with per-row qp, on noisy and desktop-like content, including the P
-frame where every macroblock is skipped. A short session at a non-square
+plain versions on the CPU: K5 -> K2 -> K3 -> K4) and must give the
+reference's words, bit totals, overflow flag and reconstruction at qp
+8/28/48 and with per-row qp, on noisy and desktop-like content, including
+the P frame where every macroblock is skipped and a P frame with motion
+search over one whole-frame window. A short session at a non-square
 geometry with three stripes is held to the reference session chunk for
 chunk. Tolerance: 0 for every output.
 """
@@ -137,6 +138,29 @@ def test_frame_entry_points_default_to_the_card():
     got = TP.h264_encode_yuv(*t, qp, *HDR, E_CAP, W_CAP)
     assert got.words.device.type == "cpu"
     _check_out(got, _j_i(y, u, v, qp, np.zeros(R, np.int32))[0])
+
+
+_j_p_motion = jax.jit(lambda y, u, v, ry, ru, rv, qp, fn: JP.h264_encode_p_yuv(
+    y, u, v, ry, ru, rv, qp, *P_HDR, fn, E_CAP, W_CAP,
+    candidates=((0, 0), (3, 0), (-3, 0), (0, 2), (0, -1))))
+
+
+@pytest.mark.parametrize("case", ["qp28", "per_row"])
+def test_p_frame_with_motion_whole_frame_window(case):
+    """Motion search with ``stripe_rows`` None: one window of the whole
+    frame (vertical clamping at the picture's top and bottom only)."""
+    y0, u0, v0 = _planes("desktop", 5)
+    cands = ((0, 0), (3, 0), (-3, 0), (0, 2), (0, -1))
+    cur = [np.roll(y0, -3, 0), np.roll(u0, -1, 0), v0.copy()]
+    cur[0][40:48, 0:20] = np.roll(y0, -2, 1)[40:48, 0:20]
+    qp, fn = _qp(case), np.full(R, 7, np.int32)
+    ref, jrec = _j_p_motion(*cur, y0, u0, v0, qp, fn)
+    ref8 = [a.astype(np.uint8) for a in (y0, u0, v0)]
+    got, trec = TP.h264_encode_p_yuv(*cur, *ref8, qp, *P_HDR, fn, E_CAP,
+                                     W_CAP, candidates=cands, device="cpu")
+    _check_out(got, ref)
+    for g, r in zip(trec, jrec):
+        assert np.array_equal(g.numpy(), np.asarray(r))
 
 
 # ---------------------------------------------------------------- session

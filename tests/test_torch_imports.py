@@ -3,7 +3,8 @@
 The port imports torch and numpy only: never jax, never the JAX package
 (not even its jax-free modules), never triton at module level; it builds
 no kernel at import; its entry points default to CUDA and refuse to fall
-back to the CPU silently; settings outside the ported slice raise.
+back to the CPU silently; settings outside the ported slice raise, and the
+reference defaults (motion search, the band path) build and encode.
 """
 
 import ast
@@ -78,8 +79,7 @@ def test_session_defaults_to_cuda_and_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default resolves to it")
     s = CaptureSettings(capture_width=64, capture_height=64,
-                        stripe_height=32, output_mode="h264",
-                        h264_motion_vrange=0, h264_partial_encode=False)
+                        stripe_height=32, output_mode="h264")
     with pytest.raises(RuntimeError, match="CUDA"):
         port_enc.H264EncoderSession(s)
     sess = port_enc.H264EncoderSession(s, device="cpu")
@@ -87,27 +87,54 @@ def test_session_defaults_to_cuda_and_refuses_cpu_fallback():
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"h264_motion_vrange": 24}, "A7"),
-    ({"h264_partial_encode": True}, "A8"),
-    ({"h264_roi_qp": True}, "A8"),
+    ({"h264_roi_qp": True}, "A16"),
     ({"fullcolor": True}, "A10"),
     ({"stripe_devices": 2}, "A11"),
     ({"watermark_path": "/nonexistent.png"}, "A5"),
 ])
 def test_settings_outside_the_slice_raise(change, item):
     kw = dict(capture_width=64, capture_height=64, stripe_height=32,
-              output_mode="h264", h264_motion_vrange=0,
-              h264_partial_encode=False)
+              output_mode="h264")
     kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
         port_enc.H264EncoderSession(CaptureSettings(**kw), device="cpu")
 
 
+def _encode_two_frames(settings):
+    """An IDR and a P frame on the CPU -> the P frame's chunks."""
+    sess = port_enc.H264EncoderSession(settings, device="cpu")
+    f = np.random.default_rng(5).integers(0, 256, (64, 64, 3),
+                                          dtype=np.uint8)
+    assert all(c.is_idr for c in sess.finalize(sess.encode(f)))
+    g = np.roll(f, 3, axis=0)
+    return sess, sess.finalize(sess.encode(g))
+
+
+@pytest.mark.parametrize("change", [{"h264_motion_vrange": 4},
+                                    {"h264_partial_encode": True}])
+def test_ported_settings_build_and_encode(change):
+    """Motion search (ROADMAP A7) and the band path (A8), which used to
+    raise, now build and encode a P frame on the CPU."""
+    kw = dict(capture_width=64, capture_height=64, stripe_height=32,
+              output_mode="h264", h264_motion_vrange=0,
+              h264_motion_hrange=2, h264_partial_encode=False)
+    kw.update(change)
+    sess, chunks = _encode_two_frames(CaptureSettings(**kw))
+    assert chunks and not any(c.is_idr for c in chunks)
+    assert sess._partial == kw["h264_partial_encode"]
+
+
 def test_reference_defaults_are_kept():
-    """The port's CaptureSettings keeps the reference defaults, so the
-    default settings are outside the slice and must be set explicitly."""
-    with pytest.raises(NotImplementedError):
-        port_enc.H264EncoderSession(CaptureSettings(), device="cpu")
+    """The port's CaptureSettings keeps the reference defaults (motion
+    search at vrange 24 / hrange 8, the band path), and a session built
+    from them encodes on the CPU."""
+    s = CaptureSettings(capture_width=64, capture_height=64,
+                        stripe_height=32, output_mode="h264")
+    assert (s.h264_motion_vrange, s.h264_motion_hrange,
+            s.h264_partial_encode) == (24, 8, True)
+    sess, chunks = _encode_two_frames(s)
+    assert len(sess._candidates) == 57 and sess._partial
+    assert chunks and sess.last_band_rows == sess.n_rows
 
 
 def test_tables_header_is_rendered_from_the_tables():
