@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of selkies_tpu_torch from csrc/ and drives two
-1920x1080 H.264 4:2:0 sequences through them, each beside the same
-sequence through the kernels' plain PyTorch versions on the same card,
-requiring equal chunks and equal state frame by frame:
+1920x1080 H.264 4:2:0 sequences and one 1920x1080 JPEG sequence through
+them, each beside the same sequence through the kernels' plain PyTorch
+versions on the same card, requiring equal chunks and equal state frame
+by frame:
 
 1. the stock configuration (zero-MV P frames, no band path): IDR,
    damaged and idle P frames, paint-over, a forced IDR and one overflow
@@ -15,7 +16,16 @@ requiring equal chunks and equal state frame by frame:
    both ways, a horizontal pan, typing in one stripe, idle frames, the
    paint-over bands, a 100%-dirty frame (whose bytes must equal the
    stock P step with motion), a forced IDR and a P frame. An idle frame
-   must launch the probe and nothing else.
+   must launch the probe and nothing else;
+3. the JPEG stripe session (the server's default encoder) at its
+   defaults (quality 60, paint-over quality 90, damage gating and
+   paint-over on, 64-row stripes; ``paint_over_delay_frames`` shortened
+   to 4 as in the H.264 runs): the desktop's first frame, which needs
+   more than the stock 256 KiB byte buffer and so is the overflow
+   episode on purpose (dropped, buffers doubled), the full resend after
+   it, damaged and idle frames, both paint-overs, a forced resend and a
+   quality change between encode and finalize. An idle frame must still
+   launch all four JPEG-path kernels and send nothing.
 
 Each run resets the launch counters first and requires every kernel of
 its path to have launched. Then each kernel is held against its plain
@@ -41,12 +51,19 @@ import warnings
 import numpy as np
 import torch
 
+from selkies_tpu_torch.codecs import jpeg as jtab
 from selkies_tpu_torch.engine import state as port_state
+from selkies_tpu_torch.engine.encoder import (JpegEncoderSession,
+                                              jpeg_buffer_caps)
 from selkies_tpu_torch.engine.h264_encoder import (H264EncoderSession,
                                                    h264_buffer_caps)
 from selkies_tpu_torch.engine.types import CaptureSettings
 from selkies_tpu_torch.ops import _cuda
 from selkies_tpu_torch.ops import h264_planes as HP
+from selkies_tpu_torch.ops.dct import zigzag_order
+from selkies_tpu_torch.ops import jpeg_entropy as JE
+from selkies_tpu_torch.ops import jpeg_pipeline as JPP
+from selkies_tpu_torch.ops import jpeg_planes as JPL
 from selkies_tpu_torch.ops.h264_encode import (motion_select,
                                                motion_select_plain,
                                                scroll_candidates)
@@ -72,11 +89,18 @@ KERNELS = {
                       "selkies_tpu/ops/h264_encode.py:723"),
     "row_damage_probe": ("selkies_tpu_torch/csrc/row_damage_probe.cu",
                          "selkies_tpu/engine/h264_encoder.py:247"),
+    "jpeg_forward": ("selkies_tpu_torch/csrc/jpeg_forward.cu",
+                     "selkies_tpu/ops/jpeg_planes.py:88"),
+    "jpeg_events": ("selkies_tpu_torch/csrc/jpeg_events.cu",
+                    "selkies_tpu/ops/jpeg_entropy.py:81"),
+    "jpeg_pack": ("selkies_tpu_torch/csrc/jpeg_pack.cu",
+                  "selkies_tpu/ops/bitpack.py:134"),
 }
 #: kernels each path launches
 STOCK_PATH = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
               "pack_stream")
-DEFAULT_PATH = tuple(KERNELS)
+DEFAULT_PATH = STOCK_PATH + ("motion_select", "row_damage_probe")
+JPEG_PATH = ("row_damage_probe", "jpeg_forward", "jpeg_events", "jpeg_pack")
 
 
 class SmokeFailure(RuntimeError):
@@ -136,8 +160,7 @@ def plain_session(settings) -> H264EncoderSession:
     the card: the path the kernel session is held against."""
     sess = H264EncoderSession(settings)
     sess._ops = HP.PLAIN_OPS
-    sess._i_step = sess._build_step("i")
-    sess._p_step = sess._build_step("p")
+    sess._rebuild_steps()
     return sess
 
 
@@ -174,8 +197,7 @@ def run_sequence(sess: H264EncoderSession, frames) -> list:
             idr_bytes = sum(len(c.payload) for c in chunks)
     # overflow episode: shrink the byte buffer below the forced IDR
     sess._out_cap = idr_bytes * 2 // 3
-    sess._i_step = sess._build_step("i")
-    sess._p_step = sess._build_step("p")
+    sess._rebuild_steps()
     gen = sess._cap_gen
     check(step(f2, True) == [], "shrunk out_cap did not overflow")
     check(sess._cap_gen == gen + 1, "overflow did not grow the buffers")
@@ -653,6 +675,200 @@ def frame_times(settings, cases: dict, reps: int = 7) -> dict:
     return res
 
 
+# ------------------------------------------------------------- JPEG run
+def plain_jpeg_session(settings) -> JpegEncoderSession:
+    """A JPEG session whose step runs the plain versions on the card."""
+    sess = JpegEncoderSession(settings)
+    sess._ops = JPP.PLAIN_OPS
+    sess._rebuild_steps()
+    return sess
+
+
+def jpeg_script(frames) -> list:
+    """(name, frame, action) of the JPEG sequence. The desktop's first
+    frame at quality 60 needs more than the stock 256 KiB byte buffer
+    (every stripe is encoded every frame), so it overflows on purpose
+    ("overflow": dropped, buffers doubled, the next frame resends every
+    stripe). "force" finalizes with force_all; "quality" changes the
+    quality tiers to 40 / 80 between encode and finalize."""
+    f0, f1, f2, f3 = frames
+    return [("first", f0, "overflow"), ("resend", f0, ""),
+            ("damaged", f1, ""), ("idle", f1, ""), ("paint_others", f1, ""),
+            ("idle", f1, ""), ("paint_damaged", f1, ""), ("idle", f1, ""),
+            ("forced", f1, "force"), ("quality", f2, "quality"),
+            ("damaged_q40", f3, "")]
+
+
+def run_jpeg_sequence(sess, seq, check_idle: bool = False) -> list:
+    """-> per frame (chunks, state snapshot). With ``check_idle`` an idle
+    frame must launch each JPEG-path kernel once and send nothing."""
+    log = []
+    for name, frame, action in seq:
+        gen = sess._cap_gen
+        before = dict(_cuda.LAUNCHES)
+        out = sess.encode(frame)
+        if action == "quality":
+            sess.update_quality(40, 80)
+        chunks = sess.finalize(out, force_all=action == "force")
+        if check_idle and name == "idle":
+            delta = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                     if v != before[k]}
+            check(delta == {k: 1 for k in JPEG_PATH},
+                  f"idle JPEG frame launched {delta}")
+            check(chunks == [], "idle JPEG frame sent chunks")
+        check((action == "overflow") == (sess._cap_gen == gen + 1)
+              and (action != "overflow" or chunks == []),
+              f"{name}: overflow episode where none was planned or none "
+              "where one was")
+        log.append((chunks, {k: getattr(sess, k).clone()
+                             for k in ("_prev", "_age")}))
+    return log
+
+
+def check_jpeg_log(log, seq, sess) -> None:
+    """The sequence did what it was built for, and every chunk is a
+    well-formed baseline JFIF stripe: SOI, the quality's DQT, SOF0 of the
+    stripe's size, a scan with every 0xFF stuffed, EOI."""
+    g = sess.grid
+    S = g.n_stripes
+    n = {name: len(log[i][0]) for i, (name, _, _) in enumerate(seq)}
+    check(n["first"] == 0 and n["forced"] == S and n["resend"] == S,
+          f"full frames sent {n}")
+    check(0 < n["damaged"] < S and n["idle"] == 0, f"damage gating {n}")
+    check(n["paint_others"] + n["paint_damaged"] == S,
+          f"paint-overs cover {n}")
+    for i, (name, _, _) in enumerate(seq):
+        for c in log[i][0]:
+            p = c.payload
+            check(p[:2] == b"\xff\xd8" and p[-2:] == b"\xff\xd9", "SOI/EOI")
+            sof = p.index(b"\xff\xc0")
+            check(p[sof + 5:sof + 9] == bytes([g.stripe_h >> 8,
+                                               g.stripe_h & 255,
+                                               g.width >> 8, g.width & 255]),
+                  "SOF0 size")
+            scan = p[p.index(b"\xff\xda") + 14:-2]
+            ff = np.flatnonzero(np.frombuffer(scan, np.uint8) == 0xFF)
+            check(all(scan[k + 1] == 0 for k in ff), "unstuffed 0xFF")
+    q60 = jtab.scale_qtable(jtab.STD_LUMA_QUANT, 60)[zigzag_order()]
+    dqt = log[[s[0] for s in seq].index("quality")][0][0].payload
+    k = dqt.index(b"\xff\xdb")
+    check(dqt[k + 5:k + 69] == bytes(q60.tolist()),
+          "the quality-change frame lost its dispatch tables")
+
+
+def jpeg_kernel_checks(frames, sess) -> dict:
+    """K6 at stripe granularity and K7-K9 against their plain versions at
+    the 1080p JPEG path's shapes (tolerance 0), then timed. ``sess`` holds
+    the stock buffer caps."""
+    dev = sess.device
+    g = sess.grid
+    S, sub = g.n_stripes, sess.subsampling
+    e_cap, w_cap, out_cap = jpeg_buffer_caps(g, sub == "444")
+    check((sess._e_cap, sess._w_cap, sess._out_cap)
+          == (e_cap, w_cap, out_cap), "JPEG checks need the stock caps")
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = (lambda: flush_l2(l2))
+    out = {}
+    f0, f1 = (torch.as_tensor(f).to(dev) for f in frames[:2])
+
+    # K6 at the JPEG step's granularity: one flag per stripe
+    ko = HP.row_damage_probe(f1, f0, S)
+    err = max_abs_err([ko], [HP.row_damage_probe_plain(f1, f0, S)])
+    check(err == 0 and 0 < int(ko.sum()) < S, f"K6 per stripe (err {err})")
+    ms = time_fn(lambda: HP.row_damage_probe(f1, f0, S), 20, flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: HP.row_damage_probe_plain(f1, f0, S), 3)
+    lib = time_fn(lambda: (f1 != f0).view(S, -1).any(1), 20, flush=flush,
+                  hide_launch=True)
+    out["row_damage_probe"] = (err, ms, pms, nbytes(f1, f0, ko), f1.numel(),
+                               lib)
+
+    # K7: every third stripe on the paint tables; and tables of 1/16,
+    # where one ulp of a coefficient changes the output
+    tab = (torch.arange(S, device=dev) % 3 == 0).to(torch.int32)
+    qt = sess._qtab
+    for tables in (torch.full_like(qt, 1 / 16), qt):
+        pk, pp = f0.clone(), f0.clone()
+        ko = JPL.jpeg_forward(f1, pk, tab, tables, sub)
+        po = JPL.jpeg_forward_plain(f1, pp, tab, tables, sub)
+        err = max_abs_err(list(ko) + [pk], list(po) + [pp])
+        check(err == 0, f"jpeg_forward differs from plain (err {err})")
+    prev = f0.clone()
+    ms = time_fn(lambda: JPL.jpeg_forward(f1, prev, tab, qt, sub), 20,
+                 flush=flush, hide_launch=True)
+    pms = time_fn(lambda: JPL.jpeg_forward_plain(f1, prev, tab, qt, sub), 3)
+    n_blocks = sum(p.shape[0] for p in ko)
+    n_chroma_px = ko[1].shape[0] * 64 * 2
+    # two 8-term DCT passes (2 flops a multiply-add) and a divide, round
+    # and add per coefficient; ~15 flops of CSC a pixel; 4 per chroma mean
+    ops = (n_blocks * 64 * (2 * 8 * 2 + 3) + 15 * f1.numel() // 3
+           + (4 * n_chroma_px if sub == "420" else 0))
+    out["jpeg_forward"] = (err, ms, pms, nbytes(f1, tab, qt, *ko, prev), ops,
+                           None)
+
+    # K8 on K7's coefficients
+    scan = sess._scan
+    k8 = JE.jpeg_events(*ko, scan, S)
+    err = max_abs_err(k8, JE.jpeg_events_plain(*ko, scan, S))
+    check(err == 0, f"jpeg_events differs from plain (err {err})")
+    ms = time_fn(lambda: JE.jpeg_events(*ko, scan, S), 20, flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: JE.jpeg_events_plain(*ko, scan, S), 3)
+    out["jpeg_events"] = (err, ms, pms, nbytes(*ko, scan, *k8),
+                          20 * k8[0].numel(), None)
+
+    # K9 at the stock, the grown and too small caps
+    for caps, tag in (((e_cap, w_cap, out_cap), "stock"),
+                      ((e_cap, 2 * w_cap, 2 * out_cap), "grown"),
+                      ((e_cap, 64, 4096), "overflow")):
+        k9 = JPP.jpeg_pack(*k8, *caps)
+        err = max_abs_err(k9, JPP.jpeg_pack_plain(*k8, *caps))
+        check(err == 0, f"jpeg_pack ({tag}) differs from plain (err {err})")
+        if tag == "overflow":
+            check(k9.flags.tolist() == [1, 1], "jpeg_pack flags not raised")
+        elif tag == "stock":
+            ms = time_fn(lambda: JPP.jpeg_pack(*k8, *caps), 20, flush=flush,
+                         hide_launch=True)
+            pms = time_fn(lambda: JPP.jpeg_pack_plain(*k8, *caps), 3)
+            # an exclusive scan, the shifts and two adds per slot
+            out["jpeg_pack"] = (err, ms, pms, nbytes(*k8, *k9),
+                                10 * k8[0].numel(), None)
+    return out
+
+
+def jpeg_frame_times(settings, cases: dict, reps: int = 7) -> dict:
+    """Host-clock encode and encode+finalize times (ms) of the JPEG
+    session at twice the stock caps (where a session runs after the
+    desktop's first frame has grown them): each rep a fresh session, an
+    untimed setup frame, then the timed frame."""
+    res = {}
+    grown = [2 * c for c in jpeg_buffer_caps(
+        JpegEncoderSession(settings).grid, settings.fullcolor)[1:]]
+    for kind, (f_setup, f_timed) in cases.items():
+        enc, ts = [], []
+        for _ in range(reps):
+            sess = JpegEncoderSession(settings)
+            sess._w_cap, sess._out_cap = grown
+            sess._rebuild_steps()
+            sess.finalize(sess.encode(f_setup))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = sess.encode(f_timed)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            chunks = sess.finalize(out)
+            t2 = time.perf_counter()
+            check(sess._cap_gen == 0,
+                  "JPEG frame timing overflowed the grown buffers")
+            enc.append((t1 - t0) * 1e3)
+            ts.append((t2 - t0) * 1e3)
+        res[kind] = {"encode_ms": statistics.median(enc),
+                     "encode_finalize_ms": statistics.median(ts),
+                     "chunks": len(chunks),
+                     "bytes": sum(len(c.payload) for c in chunks)}
+    return res
+
+
 def run_path(name: str, path: tuple, run) -> tuple:
     """Counters to 0, ``run()``, counters read: every kernel of ``path``
     must have launched. -> (run's result, launches)."""
@@ -728,9 +944,34 @@ def main() -> int:
     full_dirty_equals_stock(dsettings, seq)
     print("default: the full-dirty band equals the stock P step with motion")
 
-    # the overflow episode grew kern's buffers: time at the stock caps
+    # 3. the JPEG stripe session at its defaults (paint delay 4)
+    jsettings = CaptureSettings(capture_width=WIDTH, capture_height=HEIGHT,
+                                paint_over_delay_frames=4)
+    jkern = JpegEncoderSession(jsettings)
+    jplain = plain_jpeg_session(dataclasses.replace(jsettings))
+    jg = jkern.grid
+    jframes = [torch.as_tensor(f).to(jkern.device) for f in desktop_frames(
+        jg.height, jg.width, jsettings.capture_height)]
+    jseq = jpeg_script(jframes)
+    jlog, jpeg_launches = run_path(
+        "jpeg", JPEG_PATH,
+        lambda: run_jpeg_sequence(jkern, jseq, check_idle=True))
+    check_jpeg_log(jlog, jseq, jkern)
+    compare_runs(jlog, run_jpeg_sequence(jplain, jseq))
+    print("jpeg: kernel path == plain path: chunks, prev and age, "
+          f"{len(jlog)} frames: "
+          + json.dumps([[n, len(c)] for (n, _, _), (c, _) in zip(jseq, jlog)]))
+
+    # the overflow episodes grew the buffers: the kernels are checked and
+    # timed at the stock caps
     stock = H264EncoderSession(settings)
     recs = kernel_checks(frames, stock, (kern._w_cap, kern._out_cap))
+    jstock = JpegEncoderSession(jsettings)
+    jrecs = jpeg_kernel_checks(desktop_frames(jg.height, jg.width,
+                                              jsettings.capture_height),
+                               jstock)
+    k6_stripes = jrecs.pop("row_damage_probe")
+    recs.update(jrecs)
     f2, f3 = (torch.as_tensor(f).cuda() for f in frames[2:4])
     times = frame_times(settings, {"I": (f3, f2, True),
                                    "P": (f3, f2, False)})
@@ -740,29 +981,58 @@ def main() -> int:
     dtimes = frame_times(dsettings, {"I": (base, base, True),
                                      "scroll_P": (base, seq[1][1], False),
                                      "typing_P": (base, typed, False)})
+    jf0, jf1 = jframes[:2]
+    jtimes = jpeg_frame_times(jsettings, {"full": (255 - jf0, jf0),
+                                          "damaged": (jf0, jf1),
+                                          "idle": (jf1, jf1)})
     syncs = sync_checks(settings, dsettings, base, typed)
-    print(f"host syncs inside encode(): {json.dumps(syncs)}")
+    jsess = JpegEncoderSession(jsettings)
+    jsess.finalize(jsess.encode(jf0))
+    jsyncs = {}
+    for kind, frame in (("damaged", jf1), ("idle", jf1)):
+        out, jsyncs[kind] = count_syncs(lambda: jsess.encode(frame))
+        jsess.finalize(out)
+    check(all(not v for v in jsyncs.values()),
+          f"syncs inside the JPEG encode(): {jsyncs}")
+    print(f"host syncs inside encode(): {json.dumps(syncs)}; "
+          f"jpeg: {json.dumps(jsyncs)}")
     print(f"buffer caps: stock w_cap {stock._w_cap} out_cap "
           f"{stock._out_cap}; after the overflow episode w_cap "
-          f"{kern._w_cap} out_cap {kern._out_cap}")
+          f"{kern._w_cap} out_cap {kern._out_cap}; jpeg stock w_cap "
+          f"{jstock._w_cap} out_cap {jstock._out_cap}, after its episode "
+          f"{jkern._w_cap} / {jkern._out_cap}")
     print(f"frame times, stock configuration (ms, host clock, "
           f"{g.width}x{g.height}, stock caps): " + json.dumps(times))
     print(f"frame times, default configuration (ms, host clock, "
           f"{g.width}x{g.height}, stock caps): " + json.dumps(dtimes))
+    print(f"frame times, jpeg (ms, host clock, {jg.width}x{jg.height}, "
+          f"2x stock caps, median of 7): " + json.dumps(jtimes))
     print(f"stock path launches: {json.dumps(stock_launches)}")
+    print(f"jpeg path launches: {json.dumps(jpeg_launches)}")
+    err, ms, pms, by, ops, lib = k6_stripes
+    print(f"  row_damage_probe at stripe granularity ({jg.n_stripes} "
+          f"stripes): {ms:.4f} ms (plain {pms:.2f} ms, bound "
+          f"{max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3:.4f} ms, "
+          f"library {lib:.4f} ms)")
+    # library_ms: K6's one-expression torch counterpart; null elsewhere,
+    # since no single PyTorch call does CSC + subsampling + damage (K1),
+    # the H.264 transforms, CAVLC or bit packing (K2-K5), CSC + DCT +
+    # quantisation + zigzag (K7), Huffman events (K8) or bit packing (K9)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         err, ms, pms, by, ops, lib = recs[name]
         t_bytes = by / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
+        n = launches[name] if name in DEFAULT_PATH else 0
+        n += jpeg_launches[name] if name in JPEG_PATH else 0
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": n,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
                      "library_ms": lib})
-        print(f"  {name}: launches {launches[name]}, {ms:.4f} ms "
+        print(f"  {name}: launches {n}, {ms:.4f} ms "
               f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")

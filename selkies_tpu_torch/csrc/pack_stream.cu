@@ -15,11 +15,10 @@
 // split into hi/lo words where it straddles. Words are combined with
 // atomicAdd, not atomicOr: the bit ranges are disjoint, so the two agree,
 // and where an overflowing row spills into the next row's words the sum
-// is what the reference's scatter-add computes. (2) One thread per output
-// byte: each block rescans the R row byte lengths (68 at 1080p), finds its
-// row by binary search (searchsorted, right side) and splits the word
-// big-endian; bytes past the total are zero.
+// is what the reference's scatter-add computes. (2) The byte buffer of
+// stripe_bytes.cuh (zero-padded rows; 68 rows at 1080p).
 #include "h264_common.cuh"
+#include "stripe_bytes.cuh"
 
 struct RowCtx {
   int pre_pay[6], pre_nb[6], pre_off[6];
@@ -172,47 +171,6 @@ __global__ void pack_rows_kernel(const int* __restrict__ hdr_pay,
   }
 }
 
-__global__ void concat_bytes_kernel(const unsigned* __restrict__ words,
-                                    const int* __restrict__ total_bits, int R,
-                                    int w_cap, int out_cap,
-                                    uint8_t* __restrict__ data,
-                                    int* __restrict__ byte_lens,
-                                    int* __restrict__ flags) {
-  extern __shared__ long long starts[];   // R + 1 (last: the total)
-  if (threadIdx.x == 0) {
-    long long acc = 0;
-    for (int k = 0; k < R; k++) {
-      starts[k] = acc;
-      acc += (total_bits[k] + 7) >> 3;
-    }
-    starts[R] = acc;
-  }
-  __syncthreads();
-  if (blockIdx.x == 0) {
-    for (int k = threadIdx.x; k < R; k += blockDim.x)
-      byte_lens[k] = (total_bits[k] + 7) >> 3;
-    if (threadIdx.x == 0 && starts[R] > out_cap) atomicOr(&flags[1], 1);
-  }
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (j >= out_cap) return;
-  uint8_t out = 0;
-  if (j < starts[R]) {
-    int lo = 0, hi = R;                     // first k with starts[k] > j
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (starts[mid] <= j) lo = mid + 1; else hi = mid;
-    }
-    const int sb = clampi(lo - 1, 0, R - 1);
-    const long long B = 4LL * w_cap;
-    long long local = j - starts[sb];
-    local = local < 0 ? 0 : (local > B - 1 ? B - 1 : local);
-    const unsigned w = words[static_cast<long long>(sb) * w_cap + (local >> 2)];
-    out = static_cast<uint8_t>((w >> (24 - 8 * (local & 3))) & 0xFFu);
-  }
-  data[j] = out;
-}
-
 extern "C" int pack_stream(const int* hdr_pay, const int* hdr_nb,
                            const int* ev_pay, const uint8_t* ev_nb, int SB,
                            const int* row_hdr_pay, const int* row_hdr_nb,
@@ -227,10 +185,8 @@ extern "C" int pack_stream(const int* hdr_pay, const int* hdr_nb,
       hdr_pay, hdr_nb, ev_pay, ev_nb, SB, row_hdr_pay, row_hdr_nb, row_id, qp,
       intra, R, M, e_cap, w_cap, reinterpret_cast<unsigned*>(words),
       total_bits, flags);
-  const int threads = 256;
-  concat_bytes_kernel<<<(out_cap + threads - 1) / threads, threads,
-                        (R + 1) * sizeof(long long), s>>>(
-      reinterpret_cast<const unsigned*>(words), total_bits, R, w_cap, out_cap,
-      data, byte_lens, flags);
+  launch_concat_bytes<false>(reinterpret_cast<const unsigned*>(words),
+                             total_bits, R, w_cap, out_cap, data, byte_lens,
+                             flags, s);
   return static_cast<int>(cudaGetLastError());
 }

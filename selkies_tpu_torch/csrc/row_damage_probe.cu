@@ -1,9 +1,12 @@
-// K6 row_damage_probe: one flag per macroblock row, 1 where any byte of
-// the frame differs from the damage reference in that row.
+// K6 row_damage_probe: one flag per band of rows, 1 where any byte of
+// the frame differs from the damage reference in that band.
 //
 // Replaces selkies_tpu/engine/h264_encoder.py:_jitted_row_damage_probe
 // (jnp.any((frame != prev).reshape(R, -1), axis=1)), the one
-// pre-dispatch read of the damage-proportional P path.
+// pre-dispatch read of the damage-proportional P path (a band per MB
+// row), and the damage compare of selkies_tpu/engine/encoder.py:
+// build_step_fn (jnp.any(stripes != prev_s, axis=(1, 2, 3)), a band per
+// stripe).
 //
 // Bound on the H100: bytes (frame and prev read once, 2 x 6.27 MB at
 // 1920x1088; an or per byte). Design: a 2-D grid, a few blocks per MB row

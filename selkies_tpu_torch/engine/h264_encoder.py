@@ -51,6 +51,7 @@ from ..ops.bands import dirty_fraction as _dirty_fraction
 from ..ops.bands import plan_band
 from ..ops.h264_encode import P_SLOTS_MB, SLOTS_MB, scroll_candidates
 from ..ops.h264_planes import KERNEL_OPS, StepOps, p_rows
+from . import state as _state
 from .readback import (HostCopy, fetch_stream_bytes, fetch_stripe_bytes,
                        upload)
 from .types import CaptureSettings, EncodedChunk
@@ -260,6 +261,8 @@ class H264EncoderSession:
     ``device`` None means ``cuda`` (raises when CUDA is absent); pass
     ``"cpu"`` for the plain versions."""
 
+    STATE_KEYS = _state.H264_STATE
+
     def __init__(self, settings: CaptureSettings, device=None):
         _check_slice(settings)
         self.device = resolve_device(device)
@@ -336,6 +339,10 @@ class H264EncoderSession:
                                   s.use_damage_gating, s.use_paint_over,
                                   candidates=self._candidates,
                                   ops=self._ops, scratch=self._scratch)
+
+    def _rebuild_steps(self) -> None:
+        self._i_step = self._build_step("i")
+        self._p_step = self._build_step("p")
 
     def _band_step(self, band_rows: int):
         g = self.grid
@@ -593,8 +600,7 @@ class H264EncoderSession:
                            out["frame_id"])
             self._w_cap *= 2
             self._out_cap *= 2
-            self._i_step = self._build_step("i")
-            self._p_step = self._build_step("p")
+            self._rebuild_steps()
             self._cap_gen += 1
         with self._drop_lock:
             self._force_after_drop = True

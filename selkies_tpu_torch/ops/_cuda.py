@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("csc420_damage", "mb_encode", "cavlc_events", "pack_stream",
-           "motion_select", "row_damage_probe", "errors")
+           "motion_select", "row_damage_probe", "jpeg_forward",
+           "jpeg_events", "jpeg_pack", "errors")
 LIBRARY = "libselkies_cuda.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -46,6 +47,9 @@ ENTRIES = {
     "pack_stream": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6 + [_P] * 5,
     "motion_select": [_P] * 6 + [_I] * 4 + [_P] * 4,
     "row_damage_probe": [_P] * 3 + [_I] * 2,
+    "jpeg_forward": [_P] * 7 + [_I] * 4,
+    "jpeg_events": [_P] * 6 + [_I] * 4,
+    "jpeg_pack": [_P] * 2 + [_I] * 5 + [_P] * 7,
 }
 
 #: launches per C entry since the last :func:`reset_launches`
@@ -195,3 +199,31 @@ def render_tables_header() -> str:
     m = ",".join(float(v).hex() + "f" for v in _CSC_601_FULL.reshape(-1))
     lines.append(f"static __constant__ float K_CSC[9] = {{{m}}};\n")
     return "".join(lines)
+
+
+def render_jpeg_tables_header() -> str:
+    """The text of csrc/jpeg_tables.cuh, rendered from the port's numpy
+    tables (the committed header must equal it; a CPU test checks)."""
+    import numpy as np
+
+    from .dct import dct8_matrix, zigzag_order
+    from .jpeg_entropy import _host_luts
+
+    def ints(name, vals):
+        vals = [int(v) for v in np.asarray(vals).reshape(-1)]
+        return (f"static __constant__ int {name}[{len(vals)}] = "
+                f"{{{','.join(str(v) for v in vals)}}};\n")
+    luts = _host_luts()
+    dc = (luts["dc_len"] << 16) | luts["dc_code"]            # (2, 256)
+    ac = (luts["ac_len"] << 16) | luts["ac_code"]
+    d = ",".join(float(v).hex() + "f" for v in dct8_matrix().reshape(-1))
+    return "".join([
+        "// Generated by selkies_tpu_torch/ops/_cuda.py:"
+        "render_jpeg_tables_header() from\n",
+        "// selkies_tpu_torch/ops/dct.py and codecs/jpeg.py; do not edit.\n",
+        "#pragma once\n",
+        f"static __constant__ float K_DCT8[64] = {{{d}}};\n",
+        ints("K_ZIGZAG8", zigzag_order()),
+        "// Huffman codes, len << 16 | code: [luma, chroma] x symbol\n",
+        ints("K_JPEG_DC", dc[:, :16]),
+        ints("K_JPEG_AC", ac)])

@@ -9,6 +9,13 @@ on random frames and on frames built to land on .5 ties; the tests hold
 the port to the reference on both). The plain version pins that order
 here; the CUDA kernel (csrc/csc420_damage.cu) pins the same order with
 ``__fmul_rn``/``__fadd_rn``/``__fmaf_rn``.
+
+The JPEG step (ops/jpeg_planes.py) compiles to another XLA fusion and
+was checked on its own, with quantisation tables of 1/16 that expose one
+ulp of the transform: its CSC rounds in the same order, and its 4:2:0
+chroma (:func:`subsample_420`, a float mean that is not rounded) sums
+``(a00 + a01) + (a10 + a11)`` before the exact ``* 0.25``. K7
+(csrc/jpeg_forward.cu) pins both.
 """
 
 from __future__ import annotations
@@ -53,3 +60,19 @@ def rgb_to_ycbcr(rgb: torch.Tensor, standard: str = "bt601-full"
     cr = _fma_f32(b, m[2, 2], _fma_f32(g, m[2, 1], r * float(m[2, 0])))
     out.append(cr + float(off[2]))
     return torch.stack(out, dim=-1)
+
+
+def subsample_420(plane: torch.Tensor) -> torch.Tensor:
+    """(H, W) float32 -> (H/2, W/2) by the 2x2 mean, summed
+    ``(a00 + a01) + (a10 + a11)`` in float32 (the reference's order on
+    XLA:CPU), then times 0.25 (exact)."""
+    a00, a01 = plane[0::2, 0::2], plane[0::2, 1::2]
+    a10, a11 = plane[1::2, 0::2], plane[1::2, 1::2]
+    return ((a00 + a01) + (a10 + a11)) * 0.25
+
+
+def split_ycbcr_420(ycbcr: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(H, W, 3) -> Y (H,W), Cb (H/2,W/2), Cr (H/2,W/2)."""
+    return (ycbcr[..., 0], subsample_420(ycbcr[..., 1]),
+            subsample_420(ycbcr[..., 2]))

@@ -621,25 +621,28 @@ def csc420_damage(frame, prev, n_stripes: int):
 # K6: per-MB-row damage probe (the partial path's one pre-dispatch sync)
 # ---------------------------------------------------------------------------
 
-def row_damage_probe_plain(frame, prev):
+def row_damage_probe_plain(frame, prev, n_rows: int | None = None):
     """(H, W, 3) uint8 frame and prev -> (R,) int32, 1 where any byte of
-    the MB row differs (the reference's ``_jitted_row_damage_probe``)."""
-    R = frame.shape[0] // 16
+    row band r differs: R = ``n_rows`` equal bands, by default the MB
+    rows (the reference's ``_jitted_row_damage_probe``); the JPEG step
+    passes its stripes (``jnp.any(stripes != prev_s)``)."""
+    R = frame.shape[0] // 16 if n_rows is None else n_rows
     return (frame != prev).reshape(R, -1).any(1).to(torch.int32)
 
 
-def row_damage_probe(frame, prev):
+def row_damage_probe(frame, prev, n_rows: int | None = None):
     """K6 (csrc/row_damage_probe.cu) for CUDA tensors, else
     :func:`row_damage_probe_plain`."""
     H, W = frame.shape[0], frame.shape[1]
+    R = H // 16 if n_rows is None else n_rows
     _check(frame, "frame", torch.uint8, (H, W, 3), frame.device)
     _check(prev, "prev", torch.uint8, (H, W, 3), frame.device)
-    if H % 16:
-        raise ValueError("frame height must tile into MB rows")
+    if (n_rows is None and H % 16) or R <= 0 or H % R:
+        raise ValueError(f"frame height {H} must split into {R} row bands")
     if _on_cpu(frame):
-        return row_damage_probe_plain(frame, prev)
-    out = torch.empty((H // 16,), dtype=torch.int32, device=frame.device)
-    _cuda.launch("row_damage_probe", frame, prev, out, H // 16, 48 * W)
+        return row_damage_probe_plain(frame, prev, R)
+    out = torch.empty((R,), dtype=torch.int32, device=frame.device)
+    _cuda.launch("row_damage_probe", frame, prev, out, R, 3 * W * (H // R))
     return out
 
 

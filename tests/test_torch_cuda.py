@@ -5,8 +5,11 @@ fixture). Run on the card with ``python -m pytest tests/test_torch_cuda.py
 -m cuda``. Each kernel gets the same inputs as its plain version at small
 geometries (one and several stripes, per-row qp, half the stripes sent,
 scrolled and panned content for the motion search, neighbouring
-macroblocks with different vectors, an unaligned probe input) and must
-match it exactly, overflow flags included. Tolerance: 0.
+macroblocks with different vectors, an unaligned probe input; for the
+JPEG kernels 4:2:0 and 4:4:4, per-stripe tables at qualities 10 to 100
+and tables of 1/16 that expose one ulp of a coefficient, values past the
+category caps, and word and byte buffers too small) and must match it
+exactly, overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -14,8 +17,12 @@ import pytest
 import torch
 
 from selkies_tpu_torch.codecs import h264 as hcodec
+from selkies_tpu_torch.codecs import jpeg as jtab
 from selkies_tpu_torch.ops import h264_encode as TE
 from selkies_tpu_torch.ops import h264_planes as HP
+from selkies_tpu_torch.ops import jpeg_entropy as JE
+from selkies_tpu_torch.ops import jpeg_pipeline as JPP
+from selkies_tpu_torch.ops import jpeg_planes as JPL
 
 pytestmark = pytest.mark.cuda
 
@@ -246,3 +253,106 @@ def test_frame_entry_points_run_on_the_card(dev):
     for k, p in zip(outs[None], outs["cpu"]):
         _same([k.words, k.total_bits], [p.words, p.total_bits])
         assert bool(k.overflow) == bool(p.overflow)
+
+
+# ---------------------------------------------------------------- JPEG
+JPEG_GEOMS = [(64, 96, 16, "420"), (128, 64, 64, "420"), (48, 40, 8, "444"),
+              (64, 64, 32, "444")]
+
+
+def _jpeg_frame(dev, H, W, seed):
+    """Noise over the top half, flat and gradient panels below."""
+    rng = np.random.default_rng(seed)
+    f = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+    f[H // 2:, : W // 2] = (200, 30, 90)
+    f[H // 2:, W // 2:] = np.linspace(0, 255, W - W // 2,
+                                      dtype=np.uint8)[None, :, None]
+    return torch.as_tensor(f, device=dev)
+
+
+def _qtables(dev, qm, qp):
+    t = [jtab.scale_qtable(b, q) for q in (qm, qp)
+         for b in (jtab.STD_LUMA_QUANT, jtab.STD_CHROMA_QUANT)]
+    return torch.as_tensor(np.stack(t).astype(np.float32), device=dev)
+
+
+def _jpeg_stage(dev, H, W, sh, sub, seed=0, q=(60, 90)):
+    S = H // sh
+    frame = _jpeg_frame(dev, H, W, seed)
+    tab = torch.as_tensor(np.arange(S) % 2, dtype=torch.int32, device=dev)
+    qt = _qtables(dev, *q)
+    planes = JPL.jpeg_forward_plain(frame, torch.zeros_like(frame), tab, qt,
+                                    sub)
+    scan = JE.scan_maps(JE.scan_layout(sh // 8, W // 8, sub), dev)
+    return S, frame, tab, qt, planes, scan
+
+
+@pytest.mark.parametrize("geom", JPEG_GEOMS)
+@pytest.mark.parametrize("q", [(10, 100), (60, 90), "ulp"])
+def test_jpeg_forward(dev, geom, q):
+    H, W, sh, sub = geom
+    S = H // sh
+    frame = _jpeg_frame(dev, H, W, 1)
+    tab = torch.as_tensor(np.arange(S) % 2, dtype=torch.int32, device=dev)
+    qt = torch.full((4, 64), 1 / 16, device=dev) if q == "ulp" \
+        else _qtables(dev, *q)
+    pk, pp = torch.zeros_like(frame), torch.zeros_like(frame)
+    _same(list(JPL.jpeg_forward(frame, pk, tab, qt, sub)) + [pk],
+          list(JPL.jpeg_forward_plain(frame, pp, tab, qt, sub)) + [pp])
+
+
+@pytest.mark.parametrize("geom", JPEG_GEOMS)
+def test_jpeg_events(dev, geom):
+    H, W, sh, sub = geom
+    S, _, _, _, planes, scan = _jpeg_stage(dev, H, W, sh, sub, q=(100, 100))
+    # past the category caps: AC magnitudes >= 1024, DC steps >= 2048
+    y = planes[0].clone()
+    y[0, 5], y[1, 9] = 1500, -1100
+    y[:8, 0] = torch.tensor([1024, -1024] * 4, dtype=torch.int16)
+    _same(JE.jpeg_events(y, *planes[1:], scan, S),
+          JE.jpeg_events_plain(y, *planes[1:], scan, S))
+
+
+@pytest.mark.parametrize("geom", JPEG_GEOMS)
+def test_jpeg_pack(dev, geom):
+    H, W, sh, sub = geom
+    S, _, _, _, planes, scan = _jpeg_stage(dev, H, W, sh, sub)
+    ev = JE.jpeg_events_plain(*planes, scan, S)
+    m = scan.shape[1]
+    for e_cap, w_cap, out_cap in ((m * 64, sh * W // 2, 1 << 16),
+                                  (m * 64, 16, 1 << 16),
+                                  (100, sh * W // 2, 64)):
+        args = (*ev, e_cap, w_cap, out_cap)
+        _same(JPP.jpeg_pack(*args), JPP.jpeg_pack_plain(*args))
+
+
+@pytest.mark.parametrize("geom", JPEG_GEOMS)
+def test_row_damage_probe_at_stripes(dev, geom):
+    """K6 at the JPEG step's granularity: one flag per stripe."""
+    H, W, sh, _ = geom
+    f0 = _jpeg_frame(dev, H, W, 2)
+    f1 = f0.clone()
+    f1[-1, -1, 2] ^= 1
+    for frame in (f0, f1, 255 - f0):
+        _same([HP.row_damage_probe(frame, f0, H // sh)],
+              [HP.row_damage_probe_plain(frame, f0, H // sh)])
+
+
+def test_jpeg_session_on_the_card(dev):
+    """The session's step on the kernels equals it on the plain versions
+    over a damaged, an idle and a paint-over frame."""
+    from selkies_tpu_torch.engine.encoder import JpegEncoderSession
+    from selkies_tpu_torch.engine.types import CaptureSettings
+    s = CaptureSettings(capture_width=96, capture_height=60,
+                        stripe_height=16, paint_over_delay_frames=1)
+    kern, plain = JpegEncoderSession(s), JpegEncoderSession(s)
+    plain._ops = JPP.PLAIN_OPS
+    plain._rebuild_steps()
+    f0 = _jpeg_frame(dev, 64, 96, 3)
+    f1 = f0.clone()
+    f1[:8, :16] = 255 - f1[:8, :16]
+    for frame in (f0, f1, f1, f1):
+        a = kern.finalize(kern.encode(frame))
+        b = plain.finalize(plain.encode(frame))
+        assert a == b
+        _same([kern._prev, kern._age], [plain._prev, plain._age])
