@@ -6,7 +6,7 @@ Builds the CUDA kernels of selkies_tpu_torch from csrc/ and drives two
 1920x1080 H.264 4:2:0 sequences and one 1920x1080 JPEG sequence through
 them, each beside the same sequence through the kernels' plain PyTorch
 versions on the same card, requiring equal chunks and equal state frame
-by frame:
+by frame, then the capture loop for both codecs:
 
 1. the stock configuration (zero-MV P frames, no band path): IDR,
    damaged and idle P frames, paint-over, a forced IDR and one overflow
@@ -25,7 +25,17 @@ by frame:
    episode on purpose (dropped, buffers doubled), the full resend after
    it, damaged and idle frames, both paint-overs, a forced resend and a
    quality change between encode and finalize. An idle frame must still
-   launch all four JPEG-path kernels and send nothing.
+   launch all four JPEG-path kernels and send nothing;
+4. the capture loop (``ScreenCapture("synthetic")``) at 1920x1080 on a
+   1088-row grid, so the padder runs on every frame, with a watermark
+   built from a seeded RGBA array at location 6, CBR, the keyframe
+   cadence and content adaptivity off: 30 frames through the depth-2
+   pipeline ring for JPEG at its defaults and for the default H.264
+   configuration, each equal, chunk for chunk per frame id, to a depth-1
+   run of the same loop, delivered in order. It prints the delivered fps,
+   the dispatch-to-delivery latency per frame (median and p99) and the
+   share of finalize time that overlapped another frame's dispatch,
+   unpaced and at the default 60 fps target.
 
 Each run resets the launch counters first and requires every kernel of
 its path to have launched. Then each kernel is held against its plain
@@ -52,13 +62,18 @@ import numpy as np
 import torch
 
 from selkies_tpu_torch.codecs import jpeg as jtab
+from selkies_tpu_torch.engine import ScreenCapture
+from selkies_tpu_torch.engine import encoder as port_encoder
+from selkies_tpu_torch.engine import h264_encoder as port_h264
 from selkies_tpu_torch.engine import state as port_state
 from selkies_tpu_torch.engine.encoder import (JpegEncoderSession,
                                               jpeg_buffer_caps)
 from selkies_tpu_torch.engine.h264_encoder import (H264EncoderSession,
                                                    h264_buffer_caps)
 from selkies_tpu_torch.engine.types import CaptureSettings
+from selkies_tpu_torch.engine.watermark import Watermark
 from selkies_tpu_torch.ops import _cuda
+from selkies_tpu_torch.ops import frames as FR
 from selkies_tpu_torch.ops import h264_planes as HP
 from selkies_tpu_torch.ops.dct import zigzag_order
 from selkies_tpu_torch.ops import jpeg_entropy as JE
@@ -67,6 +82,7 @@ from selkies_tpu_torch.ops import jpeg_planes as JPL
 from selkies_tpu_torch.ops.h264_encode import (motion_select,
                                                motion_select_plain,
                                                scroll_candidates)
+from selkies_tpu_torch.trace import tracer
 
 SEED = 20261017
 WIDTH, HEIGHT = 1920, 1080       # the capture size the sequences run at
@@ -95,12 +111,22 @@ KERNELS = {
                     "selkies_tpu/ops/jpeg_entropy.py:81"),
     "jpeg_pack": ("selkies_tpu_torch/csrc/jpeg_pack.cu",
                   "selkies_tpu/ops/bitpack.py:134"),
+    "synthetic_frame": ("selkies_tpu_torch/csrc/synthetic_frame.cu",
+                        "selkies_tpu/engine/sources.py:49"),
+    "pad_frame": ("selkies_tpu_torch/csrc/pad_frame.cu",
+                  "selkies_tpu/engine/capture.py:63"),
+    "watermark_blend": ("selkies_tpu_torch/csrc/watermark_blend.cu",
+                        "selkies_tpu/engine/watermark.py:36"),
 }
 #: kernels each path launches
 STOCK_PATH = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
               "pack_stream")
 DEFAULT_PATH = STOCK_PATH + ("motion_select", "row_damage_probe")
 JPEG_PATH = ("row_damage_probe", "jpeg_forward", "jpeg_events", "jpeg_pack")
+CAPTURE_PATH = DEFAULT_PATH + JPEG_PATH + ("synthetic_frame", "pad_frame",
+                                           "watermark_blend")
+CAPTURE_FRAMES = 30              # frames of each capture-loop run
+WM_LOCATION = 6                  # bottom-right, the setting's default
 
 
 class SmokeFailure(RuntimeError):
@@ -869,6 +895,247 @@ def jpeg_frame_times(settings, cases: dict, reps: int = 7) -> dict:
     return res
 
 
+# ---------------------------------------------------------- capture loop
+def watermark_rgba() -> np.ndarray:
+    """A seeded RGBA watermark of the largest size a frame takes (a
+    quarter of each side: 480x270 at 1080p): 30-pixel tiles of random
+    colour, alpha rising left to right from 64 to 255."""
+    h, w = HEIGHT // 4, WIDTH // 4
+    rng = np.random.default_rng(SEED + 2)
+    tiles = rng.integers(0, 256, (h // 30 + 1, w // 30 + 1, 4),
+                         dtype=np.uint8)
+    rgba = np.repeat(np.repeat(tiles, 30, 0), 30, 1)[:h, :w].copy()
+    rgba[..., 3] = np.linspace(64, 255, w).astype(np.uint8)[None, :]
+    return rgba
+
+
+def capture_settings(mode: str, depth: int, fps: float) -> CaptureSettings:
+    """The capture run's settings: the codec's defaults (JPEG quality 60;
+    H.264 motion search and the band path), a watermark at location 6,
+    and nothing that depends on the wall clock (CBR, the keyframe
+    cadence and content adaptivity off), so a run's chunks depend on
+    the tick alone."""
+    return CaptureSettings(capture_width=WIDTH, capture_height=HEIGHT,
+                           output_mode=mode, target_fps=fps,
+                           pipeline_depth=depth, use_cbr=False,
+                           keyframe_interval_s=0,
+                           h264_content_adaptive=False,
+                           watermark_path="seeded-array",
+                           watermark_location=WM_LOCATION)
+
+
+def seeded_watermark(settings, frame_w: int, frame_h: int, device):
+    """Stands in for the sessions' PNG loader (the card's machine has no
+    PIL): the seeded array, through the watermark's array constructor."""
+    return Watermark.from_rgba(watermark_rgba(), settings.watermark_location,
+                               frame_w, frame_h, device)
+
+
+def capture_run(mode: str, depth: int, fps: float) -> dict:
+    """``ScreenCapture("synthetic")`` until CAPTURE_FRAMES frames were
+    delivered. -> {"chunks": frame_id -> chunks, "order": frame ids in
+    delivery order, "dispatch": frame_id -> (t0, t1) of the encode
+    dispatch (the tracer's span), "deliver": frame_id -> (t0, t1) of the
+    finalize + callback, "stages": frame_id -> {stage: ns}, the tracer's
+    spans summed per frame}."""
+    got, deliver, died = [], {}, []
+    cap = ScreenCapture("synthetic")
+    cap.on_death = died.append
+    inner = cap._deliver
+
+    def timed_deliver(out):
+        t0 = time.perf_counter_ns()
+        n = inner(out)
+        deliver[out["frame_id"]] = (t0, time.perf_counter_ns())
+        return n
+    cap._deliver = timed_deliver
+    tracer.clear()
+    tracer.enable()
+    try:
+        cap.start_capture(got.append, capture_settings(mode, depth, fps))
+        deadline = time.monotonic() + 120
+        while len(deliver) < CAPTURE_FRAMES and not died \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        cap.stop_capture()
+        dispatch, stages = {}, {}
+        for tl in tracer.snapshot():
+            if tl.frame_id is None:
+                continue
+            per = stages.setdefault(tl.frame_id, {})
+            for name, _, t0, dur in tl.spans:
+                per[name] = per.get(name, 0) + dur
+                if name == "encode.dispatch":
+                    dispatch[tl.frame_id] = (t0, t0 + dur)
+    finally:
+        tracer.disable()
+        tracer.clear()
+    check(not died, f"{mode} capture (depth {depth}) died: {died[:1]!r}")
+    check(len(deliver) >= CAPTURE_FRAMES,
+          f"{mode} capture (depth {depth}) delivered {len(deliver)} frames "
+          "in 120 s")
+    order = list(dict.fromkeys(c.frame_id for c in got))
+    chunks = {fid: [dataclasses.astuple(c) for c in got
+                    if c.frame_id == fid] for fid in order}
+    return {"chunks": chunks, "order": order, "dispatch": dispatch,
+            "deliver": deliver, "stages": stages}
+
+
+def capture_stats(run: dict) -> dict:
+    """Delivered fps over the run, dispatch-to-delivery latency per frame
+    (ms; from the start of the frame's encode dispatch to the end of its
+    delivery), the share of finalize time that overlapped another
+    frame's dispatch, the median finalize (readback, packetize and the
+    callback) and the median per-frame time of each traced stage (ms;
+    a pipelined slot's encode.readback starts when it is submitted, so
+    it holds its wait in the ring). Host clock."""
+    fids = sorted(set(run["dispatch"]) & set(run["deliver"]))
+    lat = [(run["deliver"][f][1] - run["dispatch"][f][0]) / 1e6
+           for f in fids]
+    ends = sorted(t1 for _, t1 in run["deliver"].values())
+    fps = (len(ends) - 1) / ((ends[-1] - ends[0]) / 1e9)
+    busy = over = 0
+    for f, (a, b) in run["deliver"].items():
+        busy += b - a
+        for g, (c, d) in run["dispatch"].items():
+            if g != f:
+                over += max(0, min(b, d) - max(a, c))
+    names = sorted({k for per in run["stages"].values() for k in per})
+    stage_ms = {k: statistics.median(per.get(k, 0) / 1e6 for per in
+                                     run["stages"].values())
+                for k in names}
+    return {"frames": len(ends), "fps": fps,
+            "latency_ms_median": statistics.median(lat),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "finalize_overlap": over / busy if busy else 0.0,
+            "finalize_ms_median": statistics.median(
+                (b - a) / 1e6 for a, b in run["deliver"].values()),
+            "stage_ms_median": stage_ms}
+
+
+def check_capture_chunks(mode: str, run: dict) -> None:
+    """Every frame of the synthetic desktop changes, so every frame sent
+    chunks; JPEG chunks are JFIF stripes, H.264 chunks carry one slice
+    per MB row (IDR: SPS and PPS too), the first frame an IDR."""
+    plan = port_encoder.plan_grid if mode == "jpeg" \
+        else port_h264.plan_h264_grid
+    g = plan(capture_settings(mode, 1, 60.0))
+    for fid, chunks in run["chunks"].items():
+        check(bool(chunks), f"{mode} capture: frame {fid} sent nothing")
+        for c in chunks:
+            payload, width, height, is_idr = c[0], c[3], c[4], c[5]
+            check((width, height) == (g.width, g.stripe_h),
+                  f"{mode} capture: chunk geometry")
+            if mode == "jpeg":
+                check(payload[:2] == b"\xff\xd8" and payload[-2:]
+                      == b"\xff\xd9", "capture: JPEG chunk SOI/EOI")
+            else:
+                n_nal = payload.count(b"\x00\x00\x00\x01")
+                want = g.rows_per_stripe + (2 if is_idr else 0)
+                check(n_nal == want, "capture: H.264 NAL count")
+    if mode == "h264":
+        check(all(c[5] for c in run["chunks"][0]),
+              "capture: the first H.264 frame is not an IDR")
+
+
+def capture_path() -> tuple:
+    """The fourth path: both codecs through the capture loop, depth 2
+    against depth 1 (unpaced), then depth 2 at the default 60 fps
+    target. -> ({mode: {run: stats}}, launches of the path)."""
+    saved = {m: m.maybe_load for m in (port_encoder, port_h264)}
+    for m in saved:
+        m.maybe_load = seeded_watermark
+    try:
+        stats = {}
+        _cuda.reset_launches()
+        for mode in ("jpeg", "h264"):
+            serial = capture_run(mode, 1, 1000.0)
+            piped = capture_run(mode, 2, 1000.0)
+            paced = capture_run(mode, 2, 60.0)
+            for name, run in (("depth1", serial), ("depth2", piped),
+                              ("depth2_60fps", paced)):
+                check(run["order"] == sorted(run["order"])
+                      and run["order"][0] == 0,
+                      f"{mode} capture ({name}): frames out of order")
+                check_capture_chunks(mode, run)
+            for fid in range(CAPTURE_FRAMES):
+                check(piped["chunks"].get(fid) == serial["chunks"].get(fid)
+                      == paced["chunks"].get(fid),
+                      f"{mode} capture: frame {fid} at depth 2 differs from "
+                      "depth 1")
+            stats[mode] = {"depth1": capture_stats(serial),
+                           "depth2": capture_stats(piped),
+                           "depth2_60fps": capture_stats(paced)}
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        for m, fn in saved.items():
+            m.maybe_load = fn
+    for k in CAPTURE_PATH:
+        check(launches[k] > 0, f"capture path never launched {k}")
+    return stats, launches
+
+
+def frame_kernel_checks(dev) -> dict:
+    """K10-K12 against their plain versions at the capture path's 1080p
+    shapes (tolerance 0), then timed beside the plain version, the bound
+    and, for K11, ``F.pad``."""
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = (lambda: flush_l2(l2))
+    out = {}
+    H, W = HEIGHT, WIDTH
+    GH = (HEIGHT + 63) // 64 * 64            # the 64-row stripe grid
+
+    # K10 at a tick whose bar and block products wrap int32, and at 7
+    for tick in (7, 306783379, 429496730):
+        ko = FR.synthetic_frame(H, W, tick, dev)
+        err = max_abs_err([ko], [FR.synthetic_frame_plain(H, W, tick, dev)])
+        check(err == 0, f"synthetic_frame (tick {tick}) differs (err {err})")
+    ms = time_fn(lambda: FR.synthetic_frame(H, W, 7, dev), 20, flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: FR.synthetic_frame_plain(H, W, 7, dev), 3)
+    # ~12 integer operations a byte (compares, selects, a divide)
+    out["synthetic_frame"] = (err, ms, pms, nbytes(ko), 12 * ko.numel(),
+                              None)
+
+    # K11: the 1080p capture into the 1088-row grid
+    frame = FR.synthetic_frame(H, W, 7, dev)
+    ko = FR.pad_frame(frame, GH, W)
+    err = max_abs_err([ko], [FR.pad_frame_plain(frame, GH, W)])
+    lib_out = torch.nn.functional.pad(frame, (0, 0, 0, 0, 0, GH - H))
+    check(err == 0 and torch.equal(ko, lib_out),
+          f"pad_frame differs from plain or F.pad (err {err})")
+    ms = time_fn(lambda: FR.pad_frame(frame, GH, W), 20, flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: FR.pad_frame_plain(frame, GH, W), 3)
+    lib = time_fn(lambda: torch.nn.functional.pad(
+        frame, (0, 0, 0, 0, 0, GH - H)), 20, flush=flush, hide_launch=True)
+    out["pad_frame"] = (err, ms, pms, nbytes(frame, ko), 0, lib)
+
+    # K12: the seeded 480x270 watermark at its location-6 anchor
+    wm = Watermark.from_rgba(watermark_rgba(), WM_LOCATION, W, H, dev)
+    args = (wm._rgb, wm._a, wm._y0, wm._x0)
+    k, p = ko.clone(), ko.clone()
+    FR.watermark_blend(k, *args)
+    FR.watermark_blend_plain(p, *args)
+    err = max_abs_err([k], [p])
+    check(err == 0 and not torch.equal(k, ko),
+          f"watermark_blend differs from plain (err {err})")
+    work = ko.clone()
+    ms = time_fn(lambda: FR.watermark_blend(work, *args), 20,
+                 restore=lambda: work.copy_(ko), flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: FR.watermark_blend_plain(work, *args), 3,
+                  restore=lambda: work.copy_(ko))
+    region = 3 * wm.wh * wm.ww
+    # the region read and written, rgb and alpha read; 5 flops a byte
+    out["watermark_blend"] = (err, ms, pms,
+                              2 * region + nbytes(wm._rgb, wm._a),
+                              5 * region, None)
+    return out
+
+
+
 def run_path(name: str, path: tuple, run) -> tuple:
     """Counters to 0, ``run()``, counters read: every kernel of ``path``
     must have launched. -> (run's result, launches)."""
@@ -962,6 +1229,19 @@ def main() -> int:
           f"{len(jlog)} frames: "
           + json.dumps([[n, len(c)] for (n, _, _), (c, _) in zip(jseq, jlog)]))
 
+    # 4. the capture loop, both codecs, depth 2 against depth 1
+    t0 = time.perf_counter()
+    cstats, capture_launches = capture_path()
+    print(f"capture sequence: {CAPTURE_FRAMES} frames a run, 3 runs a codec "
+          f"in {time.perf_counter() - t0:.2f} s; launches "
+          f"{json.dumps(capture_launches)}")
+    print("capture: depth 2 == depth 1 (and depth 2 at 60 fps), chunk for "
+          f"chunk, frames 0..{CAPTURE_FRAMES - 1}, in order, both codecs")
+    for mode, runs in cstats.items():
+        for name, st in runs.items():
+            print(f"capture loop {mode} {name} ({WIDTH}x{HEIGHT}, host "
+                  f"clock): " + json.dumps(st))
+
     # the overflow episodes grew the buffers: the kernels are checked and
     # timed at the stock caps
     stock = H264EncoderSession(settings)
@@ -972,6 +1252,7 @@ def main() -> int:
                                jstock)
     k6_stripes = jrecs.pop("row_damage_probe")
     recs.update(jrecs)
+    recs.update(frame_kernel_checks(stock.device))
     f2, f3 = (torch.as_tensor(f).cuda() for f in frames[2:4])
     times = frame_times(settings, {"I": (f3, f2, True),
                                    "P": (f3, f2, False)})
@@ -1014,10 +1295,12 @@ def main() -> int:
           f"stripes): {ms:.4f} ms (plain {pms:.2f} ms, bound "
           f"{max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3:.4f} ms, "
           f"library {lib:.4f} ms)")
-    # library_ms: K6's one-expression torch counterpart; null elsewhere,
-    # since no single PyTorch call does CSC + subsampling + damage (K1),
-    # the H.264 transforms, CAVLC or bit packing (K2-K5), CSC + DCT +
-    # quantisation + zigzag (K7), Huffman events (K8) or bit packing (K9)
+    # library_ms: K6's one-expression torch counterpart and F.pad for
+    # K11; null elsewhere, since no single PyTorch call does CSC +
+    # subsampling + damage (K1), the H.264 transforms, CAVLC or bit
+    # packing (K2-K5), CSC + DCT + quantisation + zigzag (K7), Huffman
+    # events (K8), bit packing (K9), the synthetic pattern (K10) or a
+    # blend rounded half to even, clipped and written back (K12)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         err, ms, pms, by, ops, lib = recs[name]
@@ -1025,6 +1308,7 @@ def main() -> int:
         t_ops = ops / FP32_OPS_PER_S * 1e3
         n = launches[name] if name in DEFAULT_PATH else 0
         n += jpeg_launches[name] if name in JPEG_PATH else 0
+        n += capture_launches[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,

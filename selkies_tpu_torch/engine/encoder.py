@@ -12,7 +12,9 @@ and 4:4:4 (``fullcolor``):
   damaged and the repainted ones are sent;
 - a host tail that slices the buffer, 0xFF-stuffs each scan, wraps the
   JFIF headers with the tables that were live at dispatch, and emits
-  :class:`EncodedChunk`s.
+  :class:`EncodedChunk`s;
+- ``watermark_path``: a PNG blended into every frame before the step
+  (engine/watermark.py, K12), anchored to the visible size.
 
 One frame is K6 ``row_damage_probe`` at stripe granularity, K7
 ``jpeg_forward`` (which also writes ``prev <- frame``), K8 ``jpeg_events``
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import Any
 
 import numpy as np
@@ -37,9 +40,12 @@ from .._device import resolve_device
 from ..codecs import jpeg as jtab
 from ..ops.jpeg_entropy import scan_layout, scan_maps
 from ..ops.jpeg_pipeline import KERNEL_OPS, JpegOps
+from ..resilience import faults as _faults
+from ..trace import tracer as _tracer
 from . import state as _state
 from .readback import HostCopy, fetch_stream_bytes, fetch_stripe_bytes, upload
 from .types import CaptureSettings, EncodedChunk
+from .watermark import maybe_load
 
 logger = logging.getLogger("selkies_tpu_torch.engine.encoder")
 
@@ -127,9 +133,6 @@ class JpegEncoderSession:
     STATE_KEYS = _state.JPEG_STATE
 
     def __init__(self, settings: CaptureSettings, device=None):
-        if settings.watermark_path:
-            raise NotImplementedError(
-                "watermark_path (ROADMAP A5) is not ported yet")
         self.device = resolve_device(device)
         self.settings = settings
         self.grid = plan_grid(settings)
@@ -150,6 +153,13 @@ class JpegEncoderSession:
         # so damage diffs against it would leave stale stripes on glass
         self._force_after_drop = False
         self._cap_gen = 0   # buffer-growth generation
+        # anchored against the VISIBLE size: padded rows and columns are
+        # cropped client-side, so a bottom/right anchor must not land there
+        self._watermark = maybe_load(settings, g.out_w, g.out_h, self.device)
+        # readback runs here while the next frame's kernels are queued on
+        # the dispatching stream (engine/readback.py)
+        self._copy_stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
         self.update_quality(settings.jpeg_quality,
                             settings.paint_over_quality)
 
@@ -162,6 +172,12 @@ class JpegEncoderSession:
                                    s.paint_over_delay_frames,
                                    s.use_damage_gating, s.use_paint_over,
                                    self._scan, ops=self._ops)
+
+    @property
+    def visible_size(self) -> tuple[int, int]:
+        """(width, height) the client should display; encode dims are
+        block-padded beyond this and cropped client-side."""
+        return self.grid.out_w, self.grid.out_h
 
     # -- live tunables ------------------------------------------------------
     def update_quality(self, motion_q: int, paint_q: int | None = None):
@@ -180,56 +196,78 @@ class JpegEncoderSession:
                             self.device)
 
     # -- device step --------------------------------------------------------
-    def encode(self, frame, force: bool = False) -> dict[str, Any]:
+    def encode(self, frame, force: bool = False, owned: bool = False
+               ) -> dict[str, Any]:
         """Dispatch one encode step on a (grid.height, grid.width, 3)
         uint8 frame (numpy or torch); does not wait for the device.
         ``force`` is a finalize-time decision for JPEG (every stripe is
         always in the buffer); accepted for parity with the H.264
-        session."""
+        session. ``owned``: the caller hands ``frame`` over, so the
+        watermark is blended into it in place instead of a copy."""
         del force
+        # fault point: device_error raises, slow stalls the dispatch
+        _faults.registry.perturb("encoder.dispatch")
         cap_gen = self._cap_gen
         frame = upload(frame, self.device).contiguous()
-        data, lens, send, is_paint, overflow = self._step(
-            frame, self._prev, self._age, self._qtab)
-        fid = self.frame_id
-        self.frame_id = (self.frame_id + 1) & 0xFFFF
+        if self._watermark is not None:
+            frame = self._watermark.apply(frame, owned)
+        with _tracer.span("encode.dispatch"):
+            data, lens, send, is_paint, overflow = self._step(
+                frame, self._prev, self._age, self._qtab)
+            fid = self.frame_id
+            self.frame_id = (self.frame_id + 1) & 0xFFFF
+            control = HostCopy([lens, send, is_paint, overflow])
         # the host tables live at DISPATCH: a quality change before
         # finalize must not make the DQT disagree with the device's
-        return {"data": data,
-                "control": HostCopy([lens, send, is_paint, overflow]),
-                "frame_id": fid, "cap_gen": cap_gen,
-                "qtabs": self._qtabs_np}
+        return {"data": data, "control": control, "frame_id": fid,
+                "cap_gen": cap_gen, "qtabs": self._qtabs_np}
 
     # -- host tail ----------------------------------------------------------
     def finalize(self, out: dict[str, Any], force_all: bool = False
                  ) -> list[EncodedChunk]:
-        """Waits for the control arrays and produces wire-ready chunks."""
+        """Waits for the control arrays and produces wire-ready chunks.
+        Reads only what :meth:`encode` put in ``out``."""
         g = self.grid
+        # ONE readback span per frame: the control sync and the stream
+        # fetch; a pipelined slot's readback starts at its submit instant
+        tl = _tracer.lookup(self.settings.display_id, out["frame_id"])
+        lane = f"slot{out['slot']}" if "slot" in out else None
+        rb_t0 = out.get("submitted_ns") or time.perf_counter_ns()
         overflowed, idle, force_all, lens, send, is_paint = \
             self._sync_control(out, force_all)
+        data = starts = None
+        if not overflowed and not idle:
+            starts = np.concatenate([[0], np.cumsum(lens)])
+            # every stripe is in the buffer: fetch through the last
+            # DELIVERED one, never the capacity padding
+            deliver = np.arange(g.n_stripes) if force_all \
+                else np.nonzero(send)[0]
+            last = int(deliver[-1])
+            data = fetch_stream_bytes(out["data"],
+                                      int(starts[last] + lens[last]),
+                                      self._copy_stream,
+                                      out["control"].done)
+        _tracer.record_span(tl, "encode.readback", rb_t0, lane=lane)
         if overflowed:
             self._handle_overflow(out)
             return []
         if idle:
             return []                 # idle frame: fetched nothing at all
-        starts = np.concatenate([[0], np.cumsum(lens)])
-        # every stripe is in the buffer: fetch through the last DELIVERED
-        # one, never the capacity padding
-        deliver = np.arange(g.n_stripes) if force_all \
-            else np.nonzero(send)[0]
-        last = int(deliver[-1])
-        data = fetch_stream_bytes(out["data"],
-                                  int(starts[last] + lens[last]))
-        return [self._chunk(out, i, data[starts[i]:starts[i] + lens[i]],
-                            bool(is_paint[i]))
-                for i in range(g.n_stripes) if force_all or send[i]]
+        with _tracer.span("packetize", tl, lane=lane):
+            return [self._chunk(out, i, data[starts[i]:starts[i] + lens[i]],
+                                bool(is_paint[i]))
+                    for i in range(g.n_stripes) if force_all or send[i]]
 
     def finalize_stream(self, out: dict[str, Any], force_all: bool = False):
         """Stripe-granular finalize: yields each stripe's chunk with its
         own fetch. Byte-identical to :meth:`finalize`."""
         g = self.grid
+        tl = _tracer.lookup(self.settings.display_id, out["frame_id"])
+        lane = f"slot{out['slot']}" if "slot" in out else None
+        rb_t0 = out.get("submitted_ns") or time.perf_counter_ns()
         overflowed, idle, force_all, lens, send, is_paint = \
             self._sync_control(out, force_all)
+        _tracer.record_span(tl, "encode.readback", rb_t0, lane=lane)
         if overflowed:
             self._handle_overflow(out)
             return
@@ -238,9 +276,13 @@ class JpegEncoderSession:
         starts = np.concatenate([[0], np.cumsum(lens)])
         for i in range(g.n_stripes):
             if force_all or send[i]:
-                raw = fetch_stripe_bytes(out["data"], int(starts[i]),
-                                         int(lens[i]))
-                yield self._chunk(out, i, raw, bool(is_paint[i]))
+                with _tracer.span("encode.readback", tl, lane=lane):
+                    raw = fetch_stripe_bytes(out["data"], int(starts[i]),
+                                             int(lens[i]), self._copy_stream,
+                                             out["control"].done)
+                with _tracer.span("packetize", tl, lane=lane):
+                    chunk = self._chunk(out, i, raw, bool(is_paint[i]))
+                yield chunk
 
     def _sync_control(self, out: dict[str, Any], force_all: bool):
         """The one device-sync point of a dispatched frame, and the

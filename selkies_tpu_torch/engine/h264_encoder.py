@@ -16,7 +16,9 @@ damage-proportional band path) and in the stock one
   probe's host-visible damage decides send, paint-over and the band; P
   frames encode only the band of MB rows covering the damage and stitch
   host-built all-skip slices for the clean rows of sent stripes; idle
-  frames launch nothing.
+  frames launch nothing;
+- ``watermark_path``: a PNG blended into every frame before the step
+  (engine/watermark.py, K12), anchored to the visible size.
 
 One stock frame is K1 ``csc420_damage``, K5 ``motion_select`` (when
 motion is on), K2 ``mb_encode_i``/``mb_encode_p``, K3 ``cavlc_events``
@@ -40,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import threading
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -51,10 +54,13 @@ from ..ops.bands import dirty_fraction as _dirty_fraction
 from ..ops.bands import plan_band
 from ..ops.h264_encode import P_SLOTS_MB, SLOTS_MB, scroll_candidates
 from ..ops.h264_planes import KERNEL_OPS, StepOps, p_rows
+from ..resilience import faults as _faults
+from ..trace import tracer as _tracer
 from . import state as _state
 from .readback import (HostCopy, fetch_stream_bytes, fetch_stripe_bytes,
                        upload)
 from .types import CaptureSettings, EncodedChunk
+from .watermark import maybe_load
 
 logger = logging.getLogger("selkies_tpu_torch.engine.h264")
 
@@ -119,8 +125,7 @@ def _check_slice(s: CaptureSettings) -> None:
     todo = [(bool(s.h264_roi_qp), "h264_roi_qp (ROI QP, ROADMAP A16)"),
             (bool(s.fullcolor), "fullcolor (4:4:4, ROADMAP A10)"),
             (int(s.stripe_devices) > 1,
-             "stripe_devices>1 (split-frame, ROADMAP A11)"),
-            (bool(s.watermark_path), "watermark_path (ROADMAP A5)")]
+             "stripe_devices>1 (split-frame, ROADMAP A11)")]
     for bad, what in todo:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -313,6 +318,13 @@ class H264EncoderSession:
         self._hdr_pay, self._hdr_nb = events(hcodec.slice_header_events)
         self._p_hdr_pay, self._p_hdr_nb = events(
             hcodec.p_slice_header_events)
+        # anchored against the VISIBLE size (padding is cropped
+        # client-side)
+        self._watermark = maybe_load(settings, g.out_w, g.out_h, dev)
+        # readback runs here while the next frame's kernels are queued on
+        # the dispatching stream (engine/readback.py)
+        self._copy_stream = torch.cuda.Stream(dev) \
+            if dev.type == "cuda" else None
         self.qp = int(np.clip(settings.video_crf, 8, 48))
         self.paint_qp = int(np.clip(settings.video_min_qp, 8, self.qp))
         # damage-proportional path: damage, age and paint-over move to the
@@ -351,6 +363,23 @@ class H264EncoderSession:
             self._w_cap, self._out_cap, self._candidates, ops=self._ops,
             scratch=self._scratch)
 
+    @property
+    def visible_size(self) -> tuple[int, int]:
+        return self.grid.out_w, self.grid.out_h
+
+    # -- live tunables ------------------------------------------------------
+    def update_quality(self, motion_q: int, paint_q: int | None = None):
+        """JPEG-session-compatible knob: quality 1-100 maps inversely onto
+        qp 48-8."""
+        self.qp = int(np.clip(48 - (motion_q * 40) // 100, 8, 48))
+        if paint_q is not None:
+            self.paint_qp = int(np.clip(48 - (paint_q * 40) // 100, 8, 48))
+
+    def set_qp(self, qp: int, paint_qp: int | None = None):
+        self.qp = int(np.clip(qp, 8, 48))
+        if paint_qp is not None:
+            self.paint_qp = int(np.clip(paint_qp, 8, 48))
+
     def set_content_profile(self, profile) -> None:
         """Apply a content profile (the reference's engine/content.py) to
         the band planner. A ``partial_encode=False`` profile floors the
@@ -364,10 +393,15 @@ class H264EncoderSession:
         self._band_floor = floor
 
     # -- device step --------------------------------------------------------
-    def encode(self, frame, force: bool = False) -> dict[str, Any]:
+    def encode(self, frame, force: bool = False, owned: bool = False
+               ) -> dict[str, Any]:
         """One adaptive I/P step on a (height, width, 3) uint8 frame
         (numpy or torch). ``force`` and the very first frame produce IDRs;
-        every other frame is a P frame."""
+        every other frame is a P frame. ``owned``: the caller hands
+        ``frame`` over, so the watermark is blended into it in place
+        instead of a copy."""
+        # fault point: device_error raises, slow stalls the dispatch
+        _faults.registry.perturb("encoder.dispatch")
         cap_gen = self._cap_gen
         with self._drop_lock:
             if self._force_after_drop:
@@ -377,9 +411,12 @@ class H264EncoderSession:
             # every stripe stream must OPEN with an IDR
             force = True
         frame = upload(frame, self.device).contiguous()
-        if self._partial:
-            return self._dispatch_partial(frame, bool(force), cap_gen)
-        return self._dispatch_stock(frame, bool(force), cap_gen)
+        if self._watermark is not None:
+            frame = self._watermark.apply(frame, owned)
+        with _tracer.span("encode.dispatch"):
+            if self._partial:
+                return self._dispatch_partial(frame, bool(force), cap_gen)
+            return self._dispatch_stock(frame, bool(force), cap_gen)
 
     def _dispatch_stock(self, frame, intra: bool, cap_gen: int
                         ) -> dict[str, Any]:
@@ -465,32 +502,42 @@ class H264EncoderSession:
     def finalize(self, out: dict[str, Any], force_all: bool = False
                  ) -> list[EncodedChunk]:
         """``force_all`` is ignored — forced refreshes are an encode()-time
-        decision for this codec."""
+        decision for this codec. Reads only what :meth:`encode` put in
+        ``out``: with frames in flight, the next dispatch has already
+        moved the session's state on."""
         del force_all
         g = self.grid
+        # ONE readback span per frame: the control sync and the stream
+        # fetch; a pipelined slot's readback starts at its submit instant
+        tl = _tracer.lookup(self.settings.display_id, out["frame_id"])
+        lane = f"slot{out['slot']}" if "slot" in out else None
+        rb_t0 = out.get("submitted_ns") or time.perf_counter_ns()
         overflowed, idle, lens, send, intra = self._sync_control(out)
+        data = starts = None
+        if not overflowed and not idle:
+            starts = self._row_starts(lens)
+            band = out.get("band")
+            # fetch through the last DELIVERED stripe's rows only; band
+            # frames through the last band row of a sent stripe (clean
+            # rows never existed on the device)
+            if band is None:
+                last_row = (int(np.nonzero(send)[0][-1]) + 1) \
+                    * g.rows_per_stripe - 1
+            else:
+                last_row = self._band_last_row(send, band)
+            if last_row is not None:
+                data = self._fetch(out, int(starts[last_row]
+                                            + lens[last_row]))
+        _tracer.record_span(tl, "encode.readback", rb_t0, lane=lane)
         if overflowed:
             self._handle_overflow(out)
             return []
         if idle:
             return []
-        starts = self._row_starts(lens)
-        band = out.get("band")
-        # fetch through the last DELIVERED stripe's rows only; band
-        # frames through the last band row of a sent stripe (clean rows
-        # never existed on the device)
-        if band is None:
-            last_row = (int(np.nonzero(send)[0][-1]) + 1) \
-                * g.rows_per_stripe - 1
-        else:
-            last_row = self._band_last_row(send, band)
-        data = None
-        if last_row is not None:
-            data = fetch_stream_bytes(out["data"],
-                                      int(starts[last_row] + lens[last_row]))
-        return [self._chunk(out, i, self._stripe_row_bytes(
-                    out, i, data, starts, lens), intra)
-                for i in range(g.n_stripes) if send[i]]
+        with _tracer.span("packetize", tl, lane=lane):
+            return [self._chunk(out, i, self._stripe_row_bytes(
+                        out, i, data, starts, lens), intra)
+                    for i in range(g.n_stripes) if send[i]]
 
     def finalize_stream(self, out: dict[str, Any], force_all: bool = False):
         """Stripe-granular finalize: yields each stripe's access unit with
@@ -498,7 +545,11 @@ class H264EncoderSession:
         per-stripe stitching). Byte-identical to :meth:`finalize`."""
         del force_all
         g = self.grid
+        tl = _tracer.lookup(self.settings.display_id, out["frame_id"])
+        lane = f"slot{out['slot']}" if "slot" in out else None
+        rb_t0 = out.get("submitted_ns") or time.perf_counter_ns()
         overflowed, idle, lens, send, intra = self._sync_control(out)
+        _tracer.record_span(tl, "encode.readback", rb_t0, lane=lane)
         if overflowed:
             self._handle_overflow(out)
             return
@@ -509,24 +560,40 @@ class H264EncoderSession:
         band = out.get("band")
         if band is not None:
             lb = self._band_last_row(send, band)
-            data = None if lb is None else fetch_stream_bytes(
-                out["data"], int(starts[lb] + lens[lb]))
+            data = None
+            if lb is not None:
+                with _tracer.span("encode.readback", tl, lane=lane):
+                    data = self._fetch(out, int(starts[lb] + lens[lb]))
             for i in range(g.n_stripes):
-                if send[i]:
-                    yield self._chunk(out, i, self._stripe_row_bytes(
+                if not send[i]:
+                    continue
+                with _tracer.span("packetize", tl, lane=lane):
+                    chunk = self._chunk(out, i, self._stripe_row_bytes(
                         out, i, data, starts, lens), intra)
+                yield chunk
             return
         for i in range(g.n_stripes):
             if not send[i]:
                 continue
             r0, r1 = i * rps, (i + 1) * rps
-            raw = fetch_stripe_bytes(
-                out["data"], int(starts[r0]),
-                int(starts[r1 - 1] + lens[r1 - 1] - starts[r0]))
-            base = int(starts[r0])
-            rows = [bytes(raw[starts[r] - base:starts[r] - base + lens[r]])
-                    for r in range(r0, r1)]
-            yield self._chunk(out, i, rows, intra)
+            with _tracer.span("encode.readback", tl, lane=lane):
+                raw = fetch_stripe_bytes(
+                    out["data"], int(starts[r0]),
+                    int(starts[r1 - 1] + lens[r1 - 1] - starts[r0]),
+                    self._copy_stream, out["control"].done)
+            with _tracer.span("packetize", tl, lane=lane):
+                base = int(starts[r0])
+                rows = [bytes(raw[starts[r] - base:
+                                  starts[r] - base + lens[r]])
+                        for r in range(r0, r1)]
+                chunk = self._chunk(out, i, rows, intra)
+            yield chunk
+
+    def _fetch(self, out: dict[str, Any], total: int) -> np.ndarray:
+        """The first ``total`` bytes of the frame's stream buffer, on the
+        session's copy stream once the frame's kernels are done."""
+        return fetch_stream_bytes(out["data"], total, self._copy_stream,
+                                  out["control"].done)
 
     def _band_last_row(self, send, band) -> Optional[int]:
         """The last BAND-LOCAL row belonging to a delivered stripe (None

@@ -31,7 +31,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("csc420_damage", "mb_encode", "cavlc_events", "pack_stream",
            "motion_select", "row_damage_probe", "jpeg_forward",
-           "jpeg_events", "jpeg_pack", "errors")
+           "jpeg_events", "jpeg_pack", "synthetic_frame", "pad_frame",
+           "watermark_blend", "errors")
 LIBRARY = "libselkies_cuda.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -50,6 +51,9 @@ ENTRIES = {
     "jpeg_forward": [_P] * 7 + [_I] * 4,
     "jpeg_events": [_P] * 6 + [_I] * 4,
     "jpeg_pack": [_P] * 2 + [_I] * 5 + [_P] * 7,
+    "synthetic_frame": [_P] + [_I] * 3,
+    "pad_frame": [_P] * 2 + [_I] * 4,
+    "watermark_blend": [_P] * 3 + [_I] * 6,
 }
 
 #: launches per C entry since the last :func:`reset_launches`
@@ -58,6 +62,9 @@ LAUNCHES = {name: 0 for name in ENTRIES}
 _lock = threading.Lock()
 _fns: dict = {}
 _lib = None
+#: how the library is loaded: ``ctypes.CDLL`` gives the interpreter lock
+#: up around every call, ``ctypes.PyDLL`` keeps it
+LOADER = ctypes.CDLL
 _build_info: dict = {}
 
 
@@ -128,7 +135,7 @@ def _fn(entry: str):
     if fn is None:
         build()
         if _lib is None:
-            _lib = ctypes.CDLL(str(build_dir() / LIBRARY))
+            _lib = LOADER(str(build_dir() / LIBRARY))
             _lib.sk_error_string.argtypes = [ctypes.c_int]
             _lib.sk_error_string.restype = ctypes.c_char_p
         fn = getattr(_lib, entry)

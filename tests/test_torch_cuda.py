@@ -356,3 +356,119 @@ def test_jpeg_session_on_the_card(dev):
         b = plain.finalize(plain.encode(frame))
         assert a == b
         _same([kern._prev, kern._age], [plain._prev, plain._age])
+
+
+# ------------------------------------------------- the engine loop: K10-K12
+
+#: (height, width): the 1080p capture and the grid, and odd sizes whose
+#: byte counts are not multiples of 4 (the kernels' ragged tails)
+FRAME_GEOMS = [(1080, 1920), (1088, 1920), (37, 53), (5, 7)]
+
+
+@pytest.mark.parametrize("geom", FRAME_GEOMS)
+@pytest.mark.parametrize("tick", [0, 95, 306783379, 429496730, 2**31 - 1])
+def test_synthetic_frame(dev, geom, tick):
+    from selkies_tpu_torch.ops import frames as FR
+    H, W = geom
+    _same([FR.synthetic_frame(H, W, tick, dev)],
+          [FR.synthetic_frame_plain(H, W, tick, dev)])
+
+
+@pytest.mark.parametrize("src,dst", [((1080, 1920), (1088, 1920)),
+                                     ((37, 53), (48, 64)), ((5, 7), (5, 9)),
+                                     ((64, 64), (64, 64))])
+def test_pad_frame(dev, src, dst):
+    from selkies_tpu_torch.ops import frames as FR
+    f = _jpeg_frame(dev, *src, 4)
+    _same([FR.pad_frame(f, *dst)], [FR.pad_frame_plain(f, *dst)])
+    # an unaligned view of a contiguous source
+    g = torch.empty(f.numel() + 1, dtype=torch.uint8, device=dev)[1:]
+    g = g.view(f.shape).copy_(f)
+    _same([FR.pad_frame(g, *dst)], [FR.pad_frame_plain(f, *dst)])
+
+
+def _wm_inputs(dev, wh, ww, seed):
+    rng = np.random.default_rng(seed)
+    rgba = rng.integers(0, 256, (wh, ww, 4), dtype=np.uint8)
+    rgb = torch.as_tensor(rgba[..., :3].astype(np.float32), device=dev)
+    a = torch.as_tensor(rgba[..., 3:4].astype(np.float32) / 255.0,
+                        device=dev)
+    return rgb, a
+
+
+@pytest.mark.parametrize("case", [
+    (1088, 1920, 270, 480, 794, 1424),       # the largest, location 6
+    (1088, 1920, 270, 480, 2000, -5),        # clamped anchors
+    (37, 53, 9, 13, 3, 40), (37, 53, 37, 1, -1, 0)])
+def test_watermark_blend(dev, case):
+    from selkies_tpu_torch.ops import frames as FR
+    H, W, wh, ww, y0, x0 = case
+    f = _jpeg_frame(dev, H, W, 5)
+    rgb, a = _wm_inputs(dev, wh, ww, H + wh)
+    k, p = f.clone(), f.clone()
+    FR.watermark_blend(k, rgb, a, y0, x0)
+    FR.watermark_blend_plain(p, rgb, a, y0, x0)
+    _same([k], [p])
+
+
+def test_watermark_blend_on_every_byte_triple(dev):
+    """All 2^24 (region, watermark, alpha) bytes: the kernel's float
+    order against the plain version's."""
+    from selkies_tpu_torch.ops import frames as FR
+    q = -(-65536 // 3)
+    pairs = np.arange(3 * q) % 65536
+    region = torch.as_tensor((pairs >> 8).astype(np.uint8).reshape(q, 3),
+                             device=dev).expand(256, q, 3).contiguous()
+    rgb = torch.as_tensor((pairs & 255).astype(np.float32).reshape(q, 3),
+                          device=dev).expand(256, q, 3).contiguous()
+    # alpha formed on the host in float32, as the watermark forms it (a
+    # division on the card may multiply by the reciprocal instead)
+    a = torch.as_tensor(np.arange(256, dtype=np.float32) / 255.0,
+                        device=dev)[:, None, None].expand(256, q, 1)
+    a = a.contiguous()
+    k, p = region.clone(), region.clone()
+    FR.watermark_blend(k, rgb, a, 0, 0)
+    FR.watermark_blend_plain(p, rgb, a, 0, 0)
+    _same([k], [p])
+
+
+@pytest.mark.parametrize("mode", ["jpeg", "h264"])
+def test_capture_depth_two_equals_depth_one_on_the_card(dev, mode,
+                                                         monkeypatch):
+    """ScreenCapture on the card: the pipelined loop's chunks per frame
+    equal the serial loop's, with a watermark and the padder running."""
+    import time
+
+    from selkies_tpu_torch.engine import CaptureSettings, ScreenCapture
+    from selkies_tpu_torch.engine import encoder as T_enc
+    from selkies_tpu_torch.engine import h264_encoder as T_h264
+    from selkies_tpu_torch.engine.watermark import Watermark
+
+    rgba = np.random.default_rng(8).integers(0, 256, (24, 40, 4),
+                                             dtype=np.uint8)
+
+    def from_array(settings, w, h, device):
+        # the array watermark, as chip_smoke builds it (no PIL there)
+        return Watermark.from_rgba(rgba, settings.watermark_location, w, h,
+                                   device)
+    for mod in (T_enc, T_h264):
+        monkeypatch.setattr(mod, "maybe_load", from_array)
+    runs = []
+    for depth in (1, 2):
+        got = []
+        s = CaptureSettings(capture_width=256, capture_height=120,
+                            stripe_height=64, target_fps=240.0,
+                            output_mode=mode, use_cbr=False,
+                            keyframe_interval_s=0,
+                            h264_content_adaptive=False, pipeline_depth=depth,
+                            watermark_path="seeded", watermark_location=6)
+        cap = ScreenCapture("synthetic")
+        cap.start_capture(got.append, s)
+        deadline = time.monotonic() + 60
+        while (not any(c.frame_id >= 12 for c in got)
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        cap.stop_capture()
+        runs.append({fid: [c for c in got if c.frame_id == fid]
+                     for fid in range(12)})
+    assert runs[0] == runs[1] and all(runs[0].values())

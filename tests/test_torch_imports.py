@@ -49,6 +49,24 @@ def test_import_leaves_jax_and_reference_out():
     assert out.stdout.strip() == "clean"
 
 
+#: the engine loop's modules and the stdlib copies it brought
+LOOP_MODULES = [
+    "selkies_tpu_torch.engine.capture", "selkies_tpu_torch.engine.pipeline",
+    "selkies_tpu_torch.engine.sources", "selkies_tpu_torch.engine.content",
+    "selkies_tpu_torch.engine.watermark", "selkies_tpu_torch.ops.frames",
+    "selkies_tpu_torch.trace", "selkies_tpu_torch.trace.core",
+    "selkies_tpu_torch.resilience", "selkies_tpu_torch.resilience.faults",
+    "selkies_tpu_torch.obs", "selkies_tpu_torch.obs.health",
+    "selkies_tpu_torch.obs.energy", "selkies_tpu_torch.server",
+    "selkies_tpu_torch.server.metrics"]
+
+
+def test_engine_loop_modules_are_checked():
+    """Every module of the engine loop is among those the import check
+    above imports (and the AST scan below reads)."""
+    assert set(LOOP_MODULES) <= set(PORT_MODULES)
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_no_forbidden_imports(path):
     """AST scan: no jax / selkies_tpu import anywhere, no triton at module
@@ -86,11 +104,45 @@ def test_session_defaults_to_cuda_and_refuses_cpu_fallback():
     assert sess.device.type == "cpu"
 
 
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the raise "
+                    "on a machine without CUDA")
+def test_loop_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """The frame sources, K10's wrapper and the watermark run on the card
+    unless the caller names the CPU: without CUDA each raises instead of
+    quietly running the plain version on the host. A PNG that decodes
+    is put on the device, so its failure there is raised, not logged."""
+    from PIL import Image
+
+    from selkies_tpu_torch.engine import sources, watermark
+    from selkies_tpu_torch.ops import frames
+    rgba = np.full((8, 8, 4), 200, np.uint8)
+    path = tmp_path / "wm.png"
+    Image.fromarray(rgba, "RGBA").save(path)
+    settings = CaptureSettings(watermark_path=str(path))
+    monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+    calls = [
+        lambda: sources.make_source("synthetic", 64, 48),
+        lambda: sources.make_source("synthetic-static", 64, 48),
+        lambda: sources.make_source("auto", 64, 48),
+        lambda: sources.SyntheticSource(64, 48),
+        lambda: sources.ArraySource([rgba[..., :3]]),
+        lambda: sources.X11Source(),
+        lambda: frames.synthetic_frame(48, 64, 3),
+        lambda: watermark.Watermark(str(path), 6, 64, 48),
+        lambda: watermark.Watermark.from_rgba(rgba, 6, 64, 48),
+        lambda: watermark.maybe_load(settings, 64, 48)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert sources.make_source("auto", 64, 48, device="cpu").device.type \
+        == "cpu"
+    assert watermark.maybe_load(settings, 64, 48, "cpu") is not None
+
+
 @pytest.mark.parametrize("change,item", [
     ({"h264_roi_qp": True}, "A16"),
     ({"fullcolor": True}, "A10"),
     ({"stripe_devices": 2}, "A11"),
-    ({"watermark_path": "/nonexistent.png"}, "A5"),
 ])
 def test_settings_outside_the_slice_raise(change, item):
     kw = dict(capture_width=64, capture_height=64, stripe_height=32,
@@ -111,10 +163,12 @@ def _encode_two_frames(settings):
 
 
 @pytest.mark.parametrize("change", [{"h264_motion_vrange": 4},
-                                    {"h264_partial_encode": True}])
+                                    {"h264_partial_encode": True},
+                                    {"watermark_path": "/nonexistent.png"}])
 def test_ported_settings_build_and_encode(change):
-    """Motion search (ROADMAP A7) and the band path (A8), which used to
-    raise, now build and encode a P frame on the CPU."""
+    """Motion search (ROADMAP A7), the band path (A8) and the watermark
+    (A5; an unreadable PNG degrades to none, as in the reference), which
+    used to raise, now build and encode a P frame on the CPU."""
     kw = dict(capture_width=64, capture_height=64, stripe_height=32,
               output_mode="h264", h264_motion_vrange=0,
               h264_motion_hrange=2, h264_partial_encode=False)
@@ -122,6 +176,7 @@ def test_ported_settings_build_and_encode(change):
     sess, chunks = _encode_two_frames(CaptureSettings(**kw))
     assert chunks and not any(c.is_idr for c in chunks)
     assert sess._partial == kw["h264_partial_encode"]
+    assert sess._watermark is None
 
 
 def test_reference_defaults_are_kept():
