@@ -6,7 +6,8 @@ Builds the CUDA kernels of selkies_tpu_torch from csrc/ and drives two
 1920x1080 H.264 4:2:0 sequences and one 1920x1080 JPEG sequence through
 them, each beside the same sequence through the kernels' plain PyTorch
 versions on the same card, requiring equal chunks and equal state frame
-by frame, then the capture loop for both codecs:
+by frame, then the capture loop for both codecs, then both H.264
+sequences and the H.264 capture loop again at 4:4:4:
 
 1. the stock configuration (zero-MV P frames, no band path): IDR,
    damaged and idle P frames, paint-over, a forced IDR and one overflow
@@ -35,7 +36,13 @@ by frame, then the capture loop for both codecs:
    run of the same loop, delivered in order. It prints the delivered fps,
    the dispatch-to-delivery latency per frame (median and p99) and the
    share of finalize time that overlapped another frame's dispatch,
-   unpaced and at the default 60 fps target.
+   unpaced and at the default 60 fps target;
+5. fullcolor (4:4:4, High 4:4:4 Predictive): the stock sequence of 1 and
+   the default sequence of 2 (its full-dirty band again equal to the
+   stock P step with motion) at ``fullcolor=True``, kernels against plain,
+   where K13-K16 and K5's 4:4:4 entry replace K1, K2, K3 and K5's 4:2:0
+   entry, which must not launch; then the capture loop of 4 for H.264
+   at fullcolor, depth 2 against depth 1.
 
 Each run resets the launch counters first and requires every kernel of
 its path to have launched. Then each kernel is held against its plain
@@ -75,11 +82,14 @@ from selkies_tpu_torch.engine.watermark import Watermark
 from selkies_tpu_torch.ops import _cuda
 from selkies_tpu_torch.ops import frames as FR
 from selkies_tpu_torch.ops import h264_planes as HP
+from selkies_tpu_torch.ops import h264_planes444 as H4
 from selkies_tpu_torch.ops.dct import zigzag_order
 from selkies_tpu_torch.ops import jpeg_entropy as JE
 from selkies_tpu_torch.ops import jpeg_pipeline as JPP
 from selkies_tpu_torch.ops import jpeg_planes as JPL
 from selkies_tpu_torch.ops.h264_encode import (motion_select,
+                                               motion_select444,
+                                               motion_select444_plain,
                                                motion_select_plain,
                                                scroll_candidates)
 from selkies_tpu_torch.trace import tracer
@@ -117,6 +127,16 @@ KERNELS = {
                   "selkies_tpu/engine/capture.py:63"),
     "watermark_blend": ("selkies_tpu_torch/csrc/watermark_blend.cu",
                         "selkies_tpu/engine/watermark.py:36"),
+    "csc444_damage": ("selkies_tpu_torch/csrc/csc444_damage.cu",
+                      "selkies_tpu/ops/h264_planes444.py:53"),
+    "mb_encode_i444": ("selkies_tpu_torch/csrc/mb_encode444.cu",
+                       "selkies_tpu/ops/h264_planes444.py:89"),
+    "mb_encode_p444": ("selkies_tpu_torch/csrc/mb_encode444.cu",
+                       "selkies_tpu/ops/h264_planes444.py:277"),
+    "cavlc_events444": ("selkies_tpu_torch/csrc/cavlc_events.cu",
+                        "selkies_tpu/ops/h264_planes444.py:109"),
+    "motion_select444": ("selkies_tpu_torch/csrc/motion_select.cu",
+                         "selkies_tpu/ops/h264_planes444.py:242"),
 }
 #: kernels each path launches
 STOCK_PATH = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
@@ -125,6 +145,14 @@ DEFAULT_PATH = STOCK_PATH + ("motion_select", "row_damage_probe")
 JPEG_PATH = ("row_damage_probe", "jpeg_forward", "jpeg_events", "jpeg_pack")
 CAPTURE_PATH = DEFAULT_PATH + JPEG_PATH + ("synthetic_frame", "pad_frame",
                                            "watermark_blend")
+STOCK444_PATH = ("csc444_damage", "mb_encode_i444", "mb_encode_p444",
+                 "cavlc_events444", "pack_stream")
+DEFAULT444_PATH = STOCK444_PATH + ("motion_select444", "row_damage_probe")
+CAPTURE444_PATH = DEFAULT444_PATH + ("synthetic_frame", "pad_frame",
+                                     "watermark_blend")
+#: the 4:2:0 kernels whose places the 4:4:4 ones take
+NOT_ON_444 = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
+              "motion_select")
 CAPTURE_FRAMES = 30              # frames of each capture-loop run
 WM_LOCATION = 6                  # bottom-right, the setting's default
 
@@ -183,9 +211,10 @@ def desktop_frames(H: int, W: int, vis_h: int):
 # ------------------------------------------------------------ session run
 def plain_session(settings) -> H264EncoderSession:
     """A session whose steps run the kernels' plain PyTorch versions on
-    the card: the path the kernel session is held against."""
+    the card (of its chroma format): the path the kernel session is held
+    against."""
     sess = H264EncoderSession(settings)
-    sess._ops = HP.PLAIN_OPS
+    sess._ops = H4.PLAIN_OPS_444 if settings.fullcolor else HP.PLAIN_OPS
     sess._rebuild_steps()
     return sess
 
@@ -610,6 +639,199 @@ def kernel_checks(frames, sess, grown) -> dict:
     return out
 
 
+def kernel444_checks(frames, sess, grown) -> dict:
+    """K13-K16 and K5's 4:4:4 entry against their plain versions at the
+    1080p shapes of the fullcolor path, tolerance 0, then timed; K4 is
+    checked at the 4:4:4 slot counts (stock, grown and too small caps).
+    ``sess`` is a fullcolor session at the stock caps. -> name -> record
+    (as :func:`kernel_checks`) and K4's 4:4:4 times under "pack_stream444"."""
+    dev = sess.device
+    g = sess.grid
+    check((sess._e_cap, sess._w_cap, sess._out_cap)
+          == h264_buffer_caps(g, True), "4:4:4 checks need the stock caps")
+    S, rps = g.n_stripes, g.rows_per_stripe
+    R, M = g.height // 16, g.width // 16
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = (lambda: flush_l2(l2))
+    out = {}
+    f0, f1 = (torch.as_tensor(f).to(dev) for f in frames[:2])
+    f2s = torch.roll(f1, -5, 0)
+
+    # K13 (frame f1 against prev f0: some stripes damaged)
+    pk, pp = f0.clone(), f0.clone()
+    ko = H4.csc444_damage(f1, pk, S)
+    po = H4.csc444_damage_plain(f1, pp, S)
+    err = max_abs_err(list(ko) + [pk], list(po) + [pp])
+    check(err == 0, f"csc444_damage differs from plain (max err {err})")
+    check(0 < int(ko[3].sum()) < S, "K13 check frame should damage some "
+          "stripes and not others")
+    y, u, v = ko[:3]
+    prev = f0.clone()
+    ms = time_fn(lambda: H4.csc444_damage(f1, prev, S), 20,
+                 restore=lambda: prev.copy_(f0), flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: H4.csc444_damage_plain(f1, prev, S), 3,
+                  restore=lambda: prev.copy_(f0))
+    # ~15 flops a pixel: 9 multiply-adds and the rounding
+    out["csc444_damage"] = (err, ms, pms,
+                            nbytes(f1, prev, prev, y, u, v, ko[3]),
+                            15 * g.height * g.width, None)
+
+    # K14: every other stripe sent, per-row qp
+    qp = torch.full((R,), sess.qp, dtype=torch.int32, device=dev)
+    qp[::3] = sess.paint_qp
+    send = (torch.arange(S, device=dev) % 2 == 0).to(torch.int32)
+    send_rows = send.repeat_interleave(rps)
+    sent_frac = float(send.float().mean())
+    zero_ref = [torch.zeros_like(p) for p in (y, u, v)]
+    kref = [t.clone() for t in zero_ref]
+    pref = [t.clone() for t in zero_ref]
+    ko = H4.mb_encode_i444(y, u, v, qp, send, rps, *kref)
+    po = H4.mb_encode_i444_plain(y, u, v, qp, send, rps, *pref)
+    err = max_abs_err(list(ko) + kref, list(po) + pref)
+    check(err == 0, f"mb_encode_i444 differs from plain (max err {err})")
+    i_out, i_ref = ko, [t.clone() for t in kref]
+    work = [t.clone() for t in zero_ref]
+
+    def restore_i():
+        for w, b in zip(work, zero_ref):
+            w.copy_(b)
+    ms = time_fn(lambda: H4.mb_encode_i444(y, u, v, qp, send, rps, *work),
+                 20, restore=restore_i, flush=flush, hide_launch=True)
+    pms = time_fn(lambda: H4.mb_encode_i444_plain(y, u, v, qp, send, rps,
+                                                  *work), 3,
+                  restore=restore_i)
+    by = nbytes(y, u, v, qp, send, *ko) + int(nbytes(*kref) * sent_frac)
+    # ~1200 integer operations a 4x4 block (transforms, quant, dequant,
+    # recon), 48 blocks an MB
+    out["mb_encode_i444"] = (err, ms, pms, by, 1200 * 48 * R * M, None)
+
+    # K5's 4:4:4 entry: the 57 default candidates, stripe windows, a frame
+    # scrolled by 5 rows against the I recon
+    cands = scroll_candidates(24, 8)
+    p_planes = H4.csc444_damage(f2s, f1.clone(), S)[:3]
+    win = g.stripe_h
+    ko = motion_select444(p_planes[0], *i_ref, qp, cands, win)
+    po = motion_select444_plain(p_planes[0], *i_ref, qp, cands, win)
+    err = max_abs_err(ko, po)
+    check(err == 0, f"motion_select444 differs from plain (max err {err})")
+    check(bool((ko[3] != 0).any()), "K5 4:4:4 check frame chose no motion")
+    ms = time_fn(lambda: motion_select444(p_planes[0], *i_ref, qp, cands,
+                                          win, out=ko), 20, flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: motion_select444_plain(p_planes[0], *i_ref, qp,
+                                                 cands, win), 3)
+    out["motion_select444"] = (err, ms, pms,
+                               nbytes(p_planes[0], *i_ref, qp, *ko),
+                               3 * 256 * len(cands) * R * M, None)
+    pred, mv = ko[:3], ko[3]
+
+    # K15 on that prediction, the reference rewritten for sent rows
+    kref = [t.clone() for t in i_ref]
+    pref = [t.clone() for t in i_ref]
+    ko = H4.mb_encode_p444(*p_planes, qp, send_rows, *pred, mv, *kref)
+    po = H4.mb_encode_p444_plain(*p_planes, qp, send_rows, *pred, mv, *pref)
+    err = max_abs_err(list(ko) + kref, list(po) + pref)
+    check(err == 0, f"mb_encode_p444 differs from plain (max err {err})")
+    p_out = ko
+    work = [t.clone() for t in i_ref]
+
+    def restore_p():
+        for w, b in zip(work, i_ref):
+            w.copy_(b)
+    ms = time_fn(lambda: H4.mb_encode_p444(*p_planes, qp, send_rows, *pred,
+                                           mv, *work), 20, restore=restore_p,
+                 flush=flush, hide_launch=True)
+    pms = time_fn(lambda: H4.mb_encode_p444_plain(*p_planes, qp, send_rows,
+                                                  *pred, mv, *work), 3,
+                  restore=restore_p)
+    by = nbytes(*p_planes, qp, send_rows, *pred, mv, *ko) + int(
+        nbytes(*kref) * sent_frac)
+    out["mb_encode_p444"] = (err, ms, pms, by, 1200 * 48 * R * M, None)
+
+    # K16 and K4 on the K14 / K15 outputs
+    for intra, (lv, cbp, hp, hn) in ((True, i_out), (False, p_out)):
+        ko = H4.cavlc_events444(lv, cbp, intra)
+        po = H4.cavlc_events444_plain(lv, cbp, intra)
+        err = max_abs_err(ko, po)
+        check(err == 0, f"cavlc_events444 (intra={intra}) differs "
+              f"(err {err})")
+        if intra:
+            ms = time_fn(lambda: H4.cavlc_events444(lv, cbp, True), 20,
+                         flush=flush, hide_launch=True)
+            pms = time_fn(lambda: H4.cavlc_events444_plain(lv, cbp, True), 3)
+            out["cavlc_events444"] = (err, ms, pms, nbytes(lv, cbp, *ko),
+                                      30 * 36 * 51 * R * M, None)
+        row_hp = sess._hdr_pay if intra else sess._p_hdr_pay
+        row_hn = sess._hdr_nb if intra else sess._p_hdr_nb
+        row_id = torch.arange(R, dtype=torch.int32, device=dev) % 16
+        for w_cap, out_cap, tag in ((sess._w_cap, sess._out_cap, "stock"),
+                                    (*grown, "grown"),
+                                    (64, 4096, "overflow")):
+            args = (hp, hn, *ko, row_hp, row_hn, row_id, qp, intra,
+                    sess._e_cap, w_cap, out_cap)
+            k4 = HP.pack_stream(*args)
+            p4 = HP.pack_stream_plain(*args)
+            err = max_abs_err(k4, p4)
+            check(err == 0, f"pack_stream 4:4:4 ({tag}, intra={intra}) "
+                  f"differs (err {err})")
+            if tag == "overflow":
+                check(int(k4.flags[0]) == 1 and int(k4.flags[1]) == 1,
+                      "pack_stream 4:4:4 overflow flags not raised")
+            elif tag == "stock":
+                ms = time_fn(lambda: HP.pack_stream(*args), 20, flush=flush,
+                             hide_launch=True)
+                out[f"pack_stream444_{'i' if intra else 'p'}"] = (
+                    err, ms, None, nbytes(hp, hn, *ko, *k4),
+                    10 * ko[1].numel(), None)
+    return out
+
+
+def fullcolor_path(settings, dsettings, frames, seq) -> dict:
+    """The fifth path: the stock and the default sequences at fullcolor,
+    kernels against plain, then the H.264 capture loop at fullcolor.
+    -> {"launches": per run, "capture": stats, "stock_session": the
+    kernel session of the stock run (grown caps)}."""
+    fs = dataclasses.replace(settings, fullcolor=True)
+    fds = dataclasses.replace(dsettings, fullcolor=True)
+    kern = H264EncoderSession(fs)
+    plain = plain_session(fs)
+    dev_frames = [torch.as_tensor(f).to(kern.device) for f in frames]
+    klog, stock_l = run_path("fullcolor stock", STOCK444_PATH,
+                             lambda: run_sequence(kern, dev_frames))
+    check_stream(klog, kern)
+    compare_runs(klog, run_sequence(plain, dev_frames))
+    print("fullcolor stock: kernel path == plain path: chunks and state, "
+          f"{len(klog)} frames; caps after its overflow episode: w_cap "
+          f"{kern._w_cap} out_cap {kern._out_cap}")
+    dkern = H264EncoderSession(fds)
+    dlog, default_l = run_path(
+        "fullcolor default", DEFAULT444_PATH,
+        lambda: run_default_sequence(dkern, seq, check_idle=True))
+    check_default_log(dlog, seq, dkern)
+    compare_runs(dlog, run_default_sequence(plain_session(fds), seq))
+    print("fullcolor default: kernel path == plain path: chunks, state, mv "
+          f"fields, bands, {len(dlog)} frames: "
+          + json.dumps([[n, b, len(c)] for (n, _, _), (c, _, b, _)
+                        in zip(seq, dlog)]))
+    full_dirty_equals_stock(fds, seq)
+    print("fullcolor default: the full-dirty band equals the stock P step "
+          "with motion")
+    t0 = time.perf_counter()
+    cstats, capture_l = capture_path(("h264_444",), CAPTURE444_PATH,
+                                     paced=False)
+    print(f"fullcolor capture: {CAPTURE_FRAMES} frames a run, depth 1 and "
+          f"2, in {time.perf_counter() - t0:.2f} s; depth 2 == depth 1 "
+          f"chunk for chunk; launches {json.dumps(capture_l)}")
+    launches = {"stock": stock_l, "default": default_l,
+                "capture": capture_l}
+    for run, lc in launches.items():
+        bad = {k: lc[k] for k in NOT_ON_444 if lc[k]}
+        check(not bad, f"fullcolor {run} run launched 4:2:0 kernels {bad}")
+    return {"launches": launches, "capture": cstats["h264_444"],
+            "grown": (kern._w_cap, kern._out_cap)}
+
+
 def count_syncs(fn):
     """-> (fn(), the synchronizing CUDA calls it made, by torch's sync
     debug mode, each as the innermost line of this repository on the
@@ -691,7 +913,7 @@ def frame_times(settings, cases: dict, reps: int = 7) -> dict:
             check(chunks and all(c.is_idr == force for c in chunks),
                   f"timed {kind} frame sent no chunks of its kind")
             check((sess._w_cap, sess._out_cap)
-                  == h264_buffer_caps(sess.grid)[1:],
+                  == h264_buffer_caps(sess.grid, sess.fullcolor)[1:],
                   "frame timing overflowed the stock buffers")
             enc.append((t1 - t0) * 1e3)
             ts.append((t2 - t0) * 1e3)
@@ -911,12 +1133,13 @@ def watermark_rgba() -> np.ndarray:
 
 def capture_settings(mode: str, depth: int, fps: float) -> CaptureSettings:
     """The capture run's settings: the codec's defaults (JPEG quality 60;
-    H.264 motion search and the band path), a watermark at location 6,
-    and nothing that depends on the wall clock (CBR, the keyframe
-    cadence and content adaptivity off), so a run's chunks depend on
-    the tick alone."""
+    H.264 motion search and the band path; ``h264_444`` is H.264 at
+    ``fullcolor``), a watermark at location 6, and nothing that depends
+    on the wall clock (CBR, the keyframe cadence and content adaptivity
+    off), so a run's chunks depend on the tick alone."""
     return CaptureSettings(capture_width=WIDTH, capture_height=HEIGHT,
-                           output_mode=mode, target_fps=fps,
+                           output_mode=mode.removesuffix("_444"),
+                           fullcolor=mode.endswith("_444"), target_fps=fps,
                            pipeline_depth=depth, use_cbr=False,
                            keyframe_interval_s=0,
                            h264_content_adaptive=False,
@@ -1033,45 +1256,45 @@ def check_capture_chunks(mode: str, run: dict) -> None:
                 n_nal = payload.count(b"\x00\x00\x00\x01")
                 want = g.rows_per_stripe + (2 if is_idr else 0)
                 check(n_nal == want, "capture: H.264 NAL count")
-    if mode == "h264":
+    if mode != "jpeg":
         check(all(c[5] for c in run["chunks"][0]),
               "capture: the first H.264 frame is not an IDR")
 
 
-def capture_path() -> tuple:
-    """The fourth path: both codecs through the capture loop, depth 2
-    against depth 1 (unpaced), then depth 2 at the default 60 fps
-    target. -> ({mode: {run: stats}}, launches of the path)."""
+def capture_path(modes=("jpeg", "h264"), path=CAPTURE_PATH,
+                 paced: bool = True) -> tuple:
+    """The fourth path (and the fifth's loop, ``h264_444``): each mode
+    through the capture loop, depth 2 against depth 1 (unpaced), then,
+    with ``paced``, depth 2 at the default 60 fps target. -> ({mode:
+    {run: stats}}, launches of the path)."""
     saved = {m: m.maybe_load for m in (port_encoder, port_h264)}
     for m in saved:
         m.maybe_load = seeded_watermark
     try:
         stats = {}
         _cuda.reset_launches()
-        for mode in ("jpeg", "h264"):
-            serial = capture_run(mode, 1, 1000.0)
-            piped = capture_run(mode, 2, 1000.0)
-            paced = capture_run(mode, 2, 60.0)
-            for name, run in (("depth1", serial), ("depth2", piped),
-                              ("depth2_60fps", paced)):
+        for mode in modes:
+            runs = {"depth1": capture_run(mode, 1, 1000.0),
+                    "depth2": capture_run(mode, 2, 1000.0)}
+            if paced:
+                runs["depth2_60fps"] = capture_run(mode, 2, 60.0)
+            for name, run in runs.items():
                 check(run["order"] == sorted(run["order"])
                       and run["order"][0] == 0,
                       f"{mode} capture ({name}): frames out of order")
                 check_capture_chunks(mode, run)
             for fid in range(CAPTURE_FRAMES):
-                check(piped["chunks"].get(fid) == serial["chunks"].get(fid)
-                      == paced["chunks"].get(fid),
+                check(all(r["chunks"].get(fid) == runs["depth1"]["chunks"]
+                          .get(fid) for r in runs.values()),
                       f"{mode} capture: frame {fid} at depth 2 differs from "
                       "depth 1")
-            stats[mode] = {"depth1": capture_stats(serial),
-                           "depth2": capture_stats(piped),
-                           "depth2_60fps": capture_stats(paced)}
+            stats[mode] = {k: capture_stats(r) for k, r in runs.items()}
         torch.cuda.synchronize()
         launches = dict(_cuda.LAUNCHES)
     finally:
         for m, fn in saved.items():
             m.maybe_load = fn
-    for k in CAPTURE_PATH:
+    for k in path:
         check(launches[k] > 0, f"capture path never launched {k}")
     return stats, launches
 
@@ -1242,6 +1465,14 @@ def main() -> int:
             print(f"capture loop {mode} {name} ({WIDTH}x{HEIGHT}, host "
                   f"clock): " + json.dumps(st))
 
+    # 5. fullcolor: both H.264 sequences and the H.264 capture loop
+    fc = fullcolor_path(settings, dsettings, frames, seq)
+    fc_launches = {k: sum(lc[k] for lc in fc["launches"].values())
+                   for k in KERNELS}
+    for name, st in fc["capture"].items():
+        print(f"capture loop h264_444 {name} ({WIDTH}x{HEIGHT}, host "
+              f"clock): " + json.dumps(st))
+
     # the overflow episodes grew the buffers: the kernels are checked and
     # timed at the stock caps
     stock = H264EncoderSession(settings)
@@ -1253,6 +1484,11 @@ def main() -> int:
     k6_stripes = jrecs.pop("row_damage_probe")
     recs.update(jrecs)
     recs.update(frame_kernel_checks(stock.device))
+    fstock = H264EncoderSession(dataclasses.replace(settings, fullcolor=True))
+    recs444 = kernel444_checks(frames, fstock, fc["grown"])
+    k4_444 = {k: recs444.pop(k) for k in ("pack_stream444_i",
+                                          "pack_stream444_p")}
+    recs.update(recs444)
     f2, f3 = (torch.as_tensor(f).cuda() for f in frames[2:4])
     times = frame_times(settings, {"I": (f3, f2, True),
                                    "P": (f3, f2, False)})
@@ -1262,11 +1498,17 @@ def main() -> int:
     dtimes = frame_times(dsettings, {"I": (base, base, True),
                                      "scroll_P": (base, seq[1][1], False),
                                      "typing_P": (base, typed, False)})
+    fdsettings = dataclasses.replace(dsettings, fullcolor=True)
+    ftimes = frame_times(fdsettings, {"I": (base, base, True),
+                                      "scroll_P": (base, seq[1][1], False),
+                                      "typing_P": (base, typed, False)})
     jf0, jf1 = jframes[:2]
     jtimes = jpeg_frame_times(jsettings, {"full": (255 - jf0, jf0),
                                           "damaged": (jf0, jf1),
                                           "idle": (jf1, jf1)})
     syncs = sync_checks(settings, dsettings, base, typed)
+    fsyncs = sync_checks(dataclasses.replace(settings, fullcolor=True),
+                         fdsettings, base, typed)
     jsess = JpegEncoderSession(jsettings)
     jsess.finalize(jsess.encode(jf0))
     jsyncs = {}
@@ -1276,7 +1518,7 @@ def main() -> int:
     check(all(not v for v in jsyncs.values()),
           f"syncs inside the JPEG encode(): {jsyncs}")
     print(f"host syncs inside encode(): {json.dumps(syncs)}; "
-          f"jpeg: {json.dumps(jsyncs)}")
+          f"fullcolor: {json.dumps(fsyncs)}; jpeg: {json.dumps(jsyncs)}")
     print(f"buffer caps: stock w_cap {stock._w_cap} out_cap "
           f"{stock._out_cap}; after the overflow episode w_cap "
           f"{kern._w_cap} out_cap {kern._out_cap}; jpeg stock w_cap "
@@ -1286,6 +1528,14 @@ def main() -> int:
           f"{g.width}x{g.height}, stock caps): " + json.dumps(times))
     print(f"frame times, default configuration (ms, host clock, "
           f"{g.width}x{g.height}, stock caps): " + json.dumps(dtimes))
+    print(f"frame times, fullcolor default configuration (ms, host clock, "
+          f"{g.width}x{g.height}, stock 4:4:4 caps, median of 7): "
+          + json.dumps(ftimes))
+    print(f"fullcolor path launches: {json.dumps(fc['launches'])}")
+    for k, (err, ms, _, by, ops, _) in k4_444.items():
+        print(f"  {k} (K4 at the 4:4:4 slot count): {ms:.4f} ms, bound "
+              f"{max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3:.4f}"
+              " ms")
     print(f"frame times, jpeg (ms, host clock, {jg.width}x{jg.height}, "
           f"2x stock caps, median of 7): " + json.dumps(jtimes))
     print(f"stock path launches: {json.dumps(stock_launches)}")
@@ -1298,9 +1548,10 @@ def main() -> int:
     # library_ms: K6's one-expression torch counterpart and F.pad for
     # K11; null elsewhere, since no single PyTorch call does CSC +
     # subsampling + damage (K1), the H.264 transforms, CAVLC or bit
-    # packing (K2-K5), CSC + DCT + quantisation + zigzag (K7), Huffman
-    # events (K8), bit packing (K9), the synthetic pattern (K10) or a
-    # blend rounded half to even, clipped and written back (K12)
+    # packing (K2-K5, K14-K16), CSC + DCT + quantisation + zigzag (K7),
+    # Huffman events (K8), bit packing (K9), the synthetic pattern (K10),
+    # a blend rounded half to even, clipped and written back (K12) or
+    # CSC rounded to three planes + damage (K13)
     rows = []
     for name, (src, replaces) in KERNELS.items():
         err, ms, pms, by, ops, lib = recs[name]
@@ -1309,6 +1560,7 @@ def main() -> int:
         n = launches[name] if name in DEFAULT_PATH else 0
         n += jpeg_launches[name] if name in JPEG_PATH else 0
         n += capture_launches[name]
+        n += fc_launches[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,

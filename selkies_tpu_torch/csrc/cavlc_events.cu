@@ -210,3 +210,78 @@ extern "C" int cavlc_events(const int16_t* lv, const int* cbp, int* ev_pay,
       lv, cbp, ev_pay, ev_nb, R, M, intra);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ------------------------------------------------------------------ K16
+// cavlc_events444: the 4:4:4 layout. Replaces the per-component event
+// loops of selkies_tpu/ops/h264_planes444.py:h264_encode_yuv444 and
+// h264_encode_p_yuv444 (nC from _nc_planes of the component's own gated
+// total-coeff plane, the DC block's nC = nc[0::4, 0::4], no chroma DC
+// class). Bound: bytes (~71 MB of events out at 1080p). Design: one warp
+// per (MB, component), one lane per block: I 17 (DC, 16 AC blocks of 15
+// levels), P 16 (16 levels); gates from cbp's low four bits (I: the
+// shared AC flag, P: the 8x8 group bits that cover every component).
+__device__ __forceinline__ int tc444(const int16_t* lv, const int* cbp,
+                                     int r, int m, int M, int c, int b,
+                                     bool intra) {
+  const int cb = cbp[r * M + m];
+  const int g8 = ((b >> 2) >> 1) * 2 + ((b & 3) >> 1);
+  const bool gate = intra ? (cb & 15) != 0 : ((cb >> g8) & 1) != 0;
+  if (!gate) return 0;
+  const int nblk = intra ? NB_I444 : NB_P444;
+  const int slot = intra ? 17 * c + 1 + K_CODING_OF_RASTER[b]
+                         : 16 * c + K_CODING_OF_RASTER[b];
+  return count_nz(lv + ((static_cast<size_t>(r) * M + m) * nblk + slot) * 16,
+                  intra ? 15 : 16);
+}
+
+__global__ void cavlc_events444_kernel(const int16_t* __restrict__ lv,
+                                       const int* __restrict__ cbp,
+                                       int* __restrict__ ev_pay,
+                                       uint8_t* __restrict__ ev_nb, int R,
+                                       int M, int intra) {
+  const int lane = threadIdx.x & 31;
+  const int wg = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int g = wg / 3, c = wg % 3;
+  if (g >= R * M) return;
+  const int r = g / M, m = g % M;
+  const int SB = intra ? 1740 : 1728;
+  const int nblk = intra ? NB_I444 : NB_P444;
+  const size_t mb = static_cast<size_t>(g) * SB + (intra ? 580 : 576) * c;
+  int* pay = ev_pay + mb;
+  uint8_t* nb = ev_nb + mb;
+  const int16_t* lv_mb = lv + static_cast<size_t>(g) * nblk * 16;
+  if (intra && lane == 0) {
+    // DC block: nC of block (0, 0), i.e. the left MB's block (0, 3)
+    const int nc = m > 0 ? tc444(lv, cbp, r, m - 1, M, c, 3, true) : 0;
+    cavlc_block(lv_mb + 17 * c * 16, 16, nc, false, true, pay, nb);
+    return;
+  }
+  const int k = intra ? lane - 1 : lane;
+  if (k < 0 || k >= 16) return;
+  const int b = K_SCAN_RASTER[k];
+  const int by = b >> 2, bx = b & 3;
+  const int mc = intra ? 15 : 16;
+  const int base = intra ? 36 + 34 * k : 36 * k;
+  const int cb = cbp[g];
+  const bool gate = intra ? (cb & 15) != 0
+                          : ((cb >> ((by >> 1) * 2 + (bx >> 1))) & 1) != 0;
+  int na = 0, nbv = 0;
+  const bool a = bx > 0 || m > 0, up = by > 0;
+  if (bx > 0) na = tc444(lv, cbp, r, m, M, c, b - 1, intra);
+  else if (m > 0) na = tc444(lv, cbp, r, m - 1, M, c, by * 4 + 3, intra);
+  if (up) nbv = tc444(lv, cbp, r, m, M, c, b - 4, intra);
+  const int slot = intra ? 17 * c + 1 + k : 16 * c + k;
+  cavlc_block(lv_mb + slot * 16, mc, nc_combine(a, na, up, nbv), false, gate,
+              pay + base, nb + base);
+}
+
+extern "C" int cavlc_events444(const int16_t* lv, const int* cbp, int* ev_pay,
+                               uint8_t* ev_nb, int R, int M, int intra,
+                               void* stream) {
+  const int per_block = 6;                     // two MBs, three warps each
+  const int blocks = (3 * R * M + per_block - 1) / per_block;
+  cavlc_events444_kernel<<<blocks, 32 * per_block, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      lv, cbp, ev_pay, ev_nb, R, M, intra);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -11,7 +11,9 @@
 #include "h264_tables.cuh"
 
 #define LEVEL_CLAMP 2000
-#define N_BLOCKS 27
+#define N_BLOCKS 27   // 4:2:0 blocks per MB (K2, K3)
+#define NB_I444 51    // 4:4:4 blocks per MB (K14-K16): 3 x (DC + 16 AC)
+#define NB_P444 48    // 3 x 16
 #define HDR_SLOTS 6
 
 // defined once, in errors.cu: the text of a C entry's non-zero return
@@ -127,4 +129,64 @@ __device__ __forceinline__ int h4(int i, int j) {
   // rows: ++++, ++--, +--+, +-+-
   const int sign = (0x0 | (0xC << 4) | (0x6 << 8) | (0xA << 12));
   return ((sign >> (4 * i + j)) & 1) ? -1 : 1;
+}
+
+// se_event: signed Exp-Golomb as ue of the mapped code number.
+__device__ __forceinline__ void se_event(int v, int* pay, int* nb) {
+  ue_event(v > 0 ? 2 * v - 1 : -2 * v, pay, nb);
+}
+
+// ---- 4x4 block helpers of the MB coders (K2, K14, K15)
+__device__ __forceinline__ void load4x4(const uint8_t* p, int stride, int r0,
+                                        int c0, int* x) {
+#pragma unroll
+  for (int i = 0; i < 4; i++)
+#pragma unroll
+    for (int j = 0; j < 4; j++)
+      x[4 * i + j] = p[static_cast<size_t>(r0 + i) * stride + c0 + j];
+}
+
+__device__ __forceinline__ void store4x4(uint8_t* p, int stride, int r0,
+                                         int c0, const int* x) {
+#pragma unroll
+  for (int i = 0; i < 4; i++)
+#pragma unroll
+    for (int j = 0; j < 4; j++)
+      p[static_cast<size_t>(r0 + i) * stride + c0 + j] =
+          static_cast<uint8_t>(x[4 * i + j]);
+}
+
+// Levels of one block in scan order into its lv slot (16 positions); the
+// first ``skip`` scan positions are left out (DC-less blocks), the tail is
+// zero-filled.
+__device__ __forceinline__ void store_scan(int16_t* slot, const int* acl,
+                                           int skip) {
+#pragma unroll
+  for (int p = 0; p < 16; p++) {
+    int q = p + skip;
+    slot[p] = static_cast<int16_t>(q < 16 ? acl[K_ZIGZAG[q]] : 0);
+  }
+}
+
+// AC-only intra path of one block: fwd, quant (fdiv 3), DC removed,
+// dequant, inverse. -> w (with the raw DC in w[0]), acl, inv.
+__device__ __forceinline__ void intra_ac(const int* x, int qp, int* w,
+                                         int* acl, int* inv) {
+  fwd4(x, w);
+  int d[16];
+  acl[0] = 0;
+  d[0] = 0;
+#pragma unroll
+  for (int k = 1; k < 16; k++) {
+    acl[k] = quant_ac(w[k], qp, K_POS_CLS[k], 3);
+    d[k] = dequant_ac(acl[k], qp, K_POS_CLS[k]);
+  }
+  inv4(d, inv);
+}
+
+__device__ __forceinline__ bool any_nz(const int* a) {
+  bool nz = false;
+#pragma unroll
+  for (int k = 0; k < 16; k++) nz |= a[k] != 0;
+  return nz;
 }

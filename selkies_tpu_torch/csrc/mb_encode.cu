@@ -29,60 +29,6 @@
 // writes it, which no other lane touches.
 #include "h264_common.cuh"
 
-__device__ __forceinline__ void load4x4(const uint8_t* p, int stride, int r0,
-                                        int c0, int* x) {
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-#pragma unroll
-    for (int j = 0; j < 4; j++)
-      x[4 * i + j] = p[static_cast<size_t>(r0 + i) * stride + c0 + j];
-}
-
-__device__ __forceinline__ void store4x4(uint8_t* p, int stride, int r0,
-                                         int c0, const int* x) {
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-#pragma unroll
-    for (int j = 0; j < 4; j++)
-      p[static_cast<size_t>(r0 + i) * stride + c0 + j] =
-          static_cast<uint8_t>(x[4 * i + j]);
-}
-
-// Levels of one block in scan order into its lv slot (16 positions); the
-// first ``skip`` scan positions are left out (DC-less blocks), the tail is
-// zero-filled.
-__device__ __forceinline__ void store_scan(int16_t* slot, const int* acl,
-                                           int skip) {
-#pragma unroll
-  for (int p = 0; p < 16; p++) {
-    int q = p + skip;
-    slot[p] = static_cast<int16_t>(q < 16 ? acl[K_ZIGZAG[q]] : 0);
-  }
-}
-
-// AC-only intra path of one block: fwd, quant (fdiv 3), DC removed,
-// dequant, inverse. -> w (with the raw DC in w[0]), acl, inv.
-__device__ __forceinline__ void intra_ac(const int* x, int qp, int* w,
-                                         int* acl, int* inv) {
-  fwd4(x, w);
-  int d[16];
-  acl[0] = 0;
-  d[0] = 0;
-#pragma unroll
-  for (int k = 1; k < 16; k++) {
-    acl[k] = quant_ac(w[k], qp, K_POS_CLS[k], 3);
-    d[k] = dequant_ac(acl[k], qp, K_POS_CLS[k]);
-  }
-  inv4(d, inv);
-}
-
-__device__ __forceinline__ bool any_nz(const int* a) {
-  bool nz = false;
-#pragma unroll
-  for (int k = 0; k < 16; k++) nz |= a[k] != 0;
-  return nz;
-}
-
 // ---------------------------------------------------------------- I frames
 // shared layout (ints), M = MBs per row
 #define SM_DCY(m) (sm + (m) * 16)                  // raw luma W00 by raster
@@ -266,10 +212,6 @@ __global__ void mb_encode_i_kernel(const uint8_t* __restrict__ yp,
 }
 
 // ---------------------------------------------------------------- P frames
-__device__ __forceinline__ void se_event(int v, int* pay, int* nb) {
-  ue_event(v > 0 ? 2 * v - 1 : -2 * v, pay, nb);
-}
-
 // pred_* may alias ref_* (zero motion, mv null); mv (R, M, 2) quarter-pel
 // (mvx, mvy); send_rows (R,) gates the recon write per MB row.
 __global__ void mb_encode_p_kernel(const uint8_t* __restrict__ yp,

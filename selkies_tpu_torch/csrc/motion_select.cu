@@ -27,6 +27,12 @@
 // which rewrites the reference in place, reads a prediction that no recon
 // write can have touched. Chroma reads its four taps straight from global
 // memory (one candidate, 64 pixels a component).
+//
+// motion_select444 (the FULL template argument) is the 4:4:4 variant of
+// selkies_tpu/ops/h264_planes444.py:_motion_select444: the same search,
+// but the chroma planes are full resolution and ride the luma's full-pel
+// shift with the luma's window and width clamps (256 pixels a component,
+// one tap each).
 #include "h264_common.cuh"
 
 #define MAX_CANDIDATES 128
@@ -45,6 +51,7 @@ __device__ __forceinline__ int se_bits(int v) {
 // floor(v / 2) and v mod 2 as Python's >> and & give them
 __device__ __forceinline__ int floor_half(int v) { return (v - (v & 1)) / 2; }
 
+template <bool FULL>
 __global__ void motion_select_kernel(
     const uint8_t* __restrict__ cur_y, const uint8_t* __restrict__ ref_y,
     const uint8_t* __restrict__ ref_u, const uint8_t* __restrict__ ref_v,
@@ -112,30 +119,41 @@ __global__ void motion_select_kernel(
     pred_y[static_cast<size_t>(y0 + i) * W + 16 * m + j] =
         tile[(i + dy + c.vmax) * TW + j + dx + c.hmax];
   }
-  const int W2 = W / 2, cwin = win / 2, cyl = yl / 2, cbase = wbase / 2;
-  const int by = floor_half(dy), fy = dy & 1, bx = floor_half(dx), fx = dx & 1;
-  for (int p = tid; p < 128; p += nthreads) {
-    const int comp = p >> 6, i = (p >> 3) & 7, j = p & 7;
-    const uint8_t* src = comp ? ref_v : ref_u;
-    const int r0 = cbase + clampi(cyl + i + by, 0, cwin - 1);
-    const int r1 = cbase + clampi(cyl + i + by + 1, 0, cwin - 1);
-    const int c0 = clampi(8 * m + j + bx, 0, W2 - 1);
-    const int c1 = clampi(8 * m + j + bx + 1, 0, W2 - 1);
-    const int a = src[static_cast<size_t>(r0) * W2 + c0];
-    int v;
-    if (!fy && !fx) {
-      v = a;
-    } else if (fy && !fx) {
-      v = (a + src[static_cast<size_t>(r1) * W2 + c0] + 1) >> 1;
-    } else if (fx && !fy) {
-      v = (a + src[static_cast<size_t>(r0) * W2 + c1] + 1) >> 1;
-    } else {
-      v = (a + src[static_cast<size_t>(r1) * W2 + c0] +
-           src[static_cast<size_t>(r0) * W2 + c1] +
-           src[static_cast<size_t>(r1) * W2 + c1] + 2) >> 2;
+  if constexpr (FULL) {
+    for (int p = tid; p < 512; p += nthreads) {
+      const int comp = p >> 8, i = (p >> 4) & 15, j = p & 15;
+      const uint8_t* src = comp ? ref_v : ref_u;
+      const int ry = wbase + clampi(yl + i + dy, 0, win - 1);
+      const int rx = clampi(16 * m + j + dx, 0, W - 1);
+      (comp ? pred_v : pred_u)[static_cast<size_t>(y0 + i) * W + 16 * m + j] =
+          src[static_cast<size_t>(ry) * W + rx];
     }
-    (comp ? pred_v : pred_u)[static_cast<size_t>(8 * r + i) * W2 + 8 * m + j] =
-        static_cast<uint8_t>(v);
+  } else {
+    const int W2 = W / 2, cwin = win / 2, cyl = yl / 2, cbase = wbase / 2;
+    const int by = floor_half(dy), fy = dy & 1, bx = floor_half(dx), fx = dx & 1;
+    for (int p = tid; p < 128; p += nthreads) {
+      const int comp = p >> 6, i = (p >> 3) & 7, j = p & 7;
+      const uint8_t* src = comp ? ref_v : ref_u;
+      const int r0 = cbase + clampi(cyl + i + by, 0, cwin - 1);
+      const int r1 = cbase + clampi(cyl + i + by + 1, 0, cwin - 1);
+      const int c0 = clampi(8 * m + j + bx, 0, W2 - 1);
+      const int c1 = clampi(8 * m + j + bx + 1, 0, W2 - 1);
+      const int a = src[static_cast<size_t>(r0) * W2 + c0];
+      int v;
+      if (!fy && !fx) {
+        v = a;
+      } else if (fy && !fx) {
+        v = (a + src[static_cast<size_t>(r1) * W2 + c0] + 1) >> 1;
+      } else if (fx && !fy) {
+        v = (a + src[static_cast<size_t>(r0) * W2 + c1] + 1) >> 1;
+      } else {
+        v = (a + src[static_cast<size_t>(r1) * W2 + c0] +
+             src[static_cast<size_t>(r0) * W2 + c1] +
+             src[static_cast<size_t>(r1) * W2 + c1] + 2) >> 2;
+      }
+      (comp ? pred_v : pred_u)[static_cast<size_t>(8 * r + i) * W2 + 8 * m + j] =
+          static_cast<uint8_t>(v);
+    }
   }
   if (tid == 0) {
     const size_t g = static_cast<size_t>(r) * M + m;
@@ -146,11 +164,12 @@ __global__ void motion_select_kernel(
 
 // cand: host (n, 2) int32 (dy, dx) table, read here before the launch and
 // passed to the kernel by value.
-extern "C" int motion_select(const uint8_t* cur_y, const uint8_t* ref_y,
-                             const uint8_t* ref_u, const uint8_t* ref_v,
-                             const int* qp_rows, const int* cand, int n, int H,
-                             int W, int win, uint8_t* pred_y, uint8_t* pred_u,
-                             uint8_t* pred_v, int* mv, void* stream) {
+template <bool FULL>
+static int launch_motion(const uint8_t* cur_y, const uint8_t* ref_y,
+                         const uint8_t* ref_u, const uint8_t* ref_v,
+                         const int* qp_rows, const int* cand, int n, int H,
+                         int W, int win, uint8_t* pred_y, uint8_t* pred_u,
+                         uint8_t* pred_v, int* mv, void* stream) {
   if (n < 1 || n > MAX_CANDIDATES) return static_cast<int>(cudaErrorInvalidValue);
   Candidates c;
   c.n = n;
@@ -168,8 +187,29 @@ extern "C" int motion_select(const uint8_t* cur_y, const uint8_t* ref_y,
   const size_t smem = sizeof(int) * (MAX_CANDIDATES + 4) + 256 +
                       static_cast<size_t>(16 + 2 * c.vmax) * (16 + 2 * c.hmax);
   dim3 grid(W / 16, H / 16);
-  motion_select_kernel<<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-      cur_y, ref_y, ref_u, ref_v, qp_rows, c, W, win, pred_y, pred_u, pred_v,
-      mv);
+  motion_select_kernel<FULL>
+      <<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+          cur_y, ref_y, ref_u, ref_v, qp_rows, c, W, win, pred_y, pred_u,
+          pred_v, mv);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int motion_select(const uint8_t* cur_y, const uint8_t* ref_y,
+                             const uint8_t* ref_u, const uint8_t* ref_v,
+                             const int* qp_rows, const int* cand, int n, int H,
+                             int W, int win, uint8_t* pred_y, uint8_t* pred_u,
+                             uint8_t* pred_v, int* mv, void* stream) {
+  return launch_motion<false>(cur_y, ref_y, ref_u, ref_v, qp_rows, cand, n, H,
+                              W, win, pred_y, pred_u, pred_v, mv, stream);
+}
+
+// the 4:4:4 entry: ref_u / ref_v and pred_u / pred_v are H x W
+extern "C" int motion_select444(const uint8_t* cur_y, const uint8_t* ref_y,
+                                const uint8_t* ref_u, const uint8_t* ref_v,
+                                const int* qp_rows, const int* cand, int n,
+                                int H, int W, int win, uint8_t* pred_y,
+                                uint8_t* pred_u, uint8_t* pred_v, int* mv,
+                                void* stream) {
+  return launch_motion<true>(cur_y, ref_y, ref_u, ref_v, qp_rows, cand, n, H,
+                             W, win, pred_y, pred_u, pred_v, mv, stream);
 }

@@ -1,8 +1,9 @@
-"""H.264 stripe-encoder session on PyTorch/CUDA: the 4:2:0 path.
+"""H.264 stripe-encoder session on PyTorch/CUDA: 4:2:0 and 4:4:4.
 
-The counterpart of selkies_tpu/engine/h264_encoder.py for one device and
-4:2:0, in its default configuration (scroll motion search, the
-damage-proportional band path) and in the stock one
+The counterpart of selkies_tpu/engine/h264_encoder.py for one device, at
+4:2:0 and at 4:4:4 (``fullcolor``: High 4:4:4 Predictive, full-resolution
+chroma planes and reference), in its default configuration (scroll
+motion search, the damage-proportional band path) and in the stock one
 (``h264_motion_vrange=0``, ``h264_partial_encode=False``):
 
 - every wire stripe is an INDEPENDENT H.264 stream of ``stripe_h`` rows;
@@ -25,8 +26,13 @@ motion is on), K2 ``mb_encode_i``/``mb_encode_p``, K3 ``cavlc_events``
 and K4 ``pack_stream`` (ops/h264_planes.py, ops/h264_encode.py), plus
 (S,)-sized torch ops for age, paint-over, send, ``sent``/``fnum``,
 per-row qp and ``idr_pic_id``. A band frame is K6 ``row_damage_probe``
-on the whole frame, then K1, K5, K2, K3 and K4 on the band rows. Only the
-byte buffer prefix, the row lengths and the flags leave the device.
+on the whole frame, then K1, K5, K2, K3 and K4 on the band rows. At
+4:4:4 K13 ``csc444_damage``, K5's ``motion_select444``, K14
+``mb_encode_i444``/K15 ``mb_encode_p444`` and K16 ``cavlc_events444``
+(ops/h264_planes444.py) take the places of K1, K5, K2 and K3; K4 and K6
+are shared. ``h264_roi_qp`` is ignored at 4:4:4, as in the reference.
+Only the byte buffer prefix, the row lengths and the flags leave the
+device.
 
 Where the reference donates its state buffers to the jitted step, the
 port updates preallocated state tensors in place: ``prev`` (by K1), the
@@ -54,6 +60,7 @@ from ..ops.bands import dirty_fraction as _dirty_fraction
 from ..ops.bands import plan_band
 from ..ops.h264_encode import P_SLOTS_MB, SLOTS_MB, scroll_candidates
 from ..ops.h264_planes import KERNEL_OPS, StepOps, p_rows
+from ..ops.h264_planes444 import KERNEL_OPS_444, P_SLOTS_MB_444, SLOTS_MB_444
 from ..resilience import faults as _faults
 from ..trace import tracer as _tracer
 from . import state as _state
@@ -81,14 +88,21 @@ class _Grid:
     out_h: int
 
 
-def h264_buffer_caps(g: _Grid) -> tuple[int, int, int]:
-    """(e_cap, w_cap, out_cap) for a 4:2:0 grid: the reference's sizing
-    policy. out_cap is the one array that crosses to the host every frame,
-    sized for realistic intra frames (~1.5 bits/px); overflow grows it
-    (and forces a clean refresh)."""
-    e_cap = 9 + g.mb_w * max(SLOTS_MB, P_SLOTS_MB) + 2
-    w_cap = max(2048, g.mb_w * 768 // 4)
-    out_cap = max(192 * 1024, g.width * g.height // 6)
+def h264_buffer_caps(g: _Grid, fullcolor: bool = False
+                     ) -> tuple[int, int, int]:
+    """(e_cap, w_cap, out_cap) for a grid: the reference's sizing policy.
+    out_cap is the one array that crosses to the host every frame, sized
+    for realistic intra frames (~1.5 bits/px); overflow grows it (and
+    forces a clean refresh). 4:4:4 carries three luma-style components
+    (~1.5x the slot and bit budget of 4:2:0)."""
+    if fullcolor:
+        e_cap = 9 + g.mb_w * max(SLOTS_MB_444, P_SLOTS_MB_444) + 2
+        w_cap = max(3072, g.mb_w * 1152 // 4)
+        out_cap = max(288 * 1024, g.width * g.height // 4)
+    else:
+        e_cap = 9 + g.mb_w * max(SLOTS_MB, P_SLOTS_MB) + 2
+        w_cap = max(2048, g.mb_w * 768 // 4)
+        out_cap = max(192 * 1024, g.width * g.height // 6)
     return e_cap, w_cap, out_cap
 
 
@@ -121,9 +135,10 @@ def _motion_candidates(s: CaptureSettings) -> tuple:
 
 def _check_slice(s: CaptureSettings) -> None:
     """Raise for settings outside the ported slice, naming its ROADMAP
-    item."""
-    todo = [(bool(s.h264_roi_qp), "h264_roi_qp (ROI QP, ROADMAP A16)"),
-            (bool(s.fullcolor), "fullcolor (4:4:4, ROADMAP A10)"),
+    item. ROI QP with ``fullcolor`` is not raised: the reference ignores
+    it at 4:4:4."""
+    todo = [(bool(s.h264_roi_qp) and not s.fullcolor,
+             "h264_roi_qp (ROI QP, ROADMAP A16)"),
             (int(s.stripe_devices) > 1,
              "stripe_devices>1 (split-frame, ROADMAP A11)")]
     for bad, what in todo:
@@ -139,7 +154,9 @@ def build_h264_step_fn(mode: str, width: int, stripe_h: int, n_stripes: int,
     """Per-frame step for ``mode`` in {"i", "p"}; P frames search
     ``candidates`` (motion inside each stripe) when there is more than
     the zero vector. ``scratch`` = (pred_y, pred_u, pred_v, mv), full
-    frame, is where the motion search writes its prediction.
+    frame, is where the motion search writes its prediction. ``ops``
+    fix the chroma format: ``KERNEL_OPS_444`` (ops/h264_planes444.py)
+    write and read full-resolution chroma planes.
 
     step(frame, prev, age, sent, fnum, ref_y, ref_u, ref_v, qp_motion,
          qp_paint, force, hdr_pay, hdr_nb)
@@ -153,7 +170,7 @@ def build_h264_step_fn(mode: str, width: int, stripe_h: int, n_stripes: int,
 
     def step(frame, prev, age, sent, fnum, ref_y, ref_u, ref_v,
              qp_motion: int, qp_paint: int, force: bool, hdr_pay, hdr_nb):
-        y, u, v, damage = ops.csc420_damage(frame, prev, n_stripes)
+        y, u, v, damage = ops.csc_damage(frame, prev, n_stripes)
         if damage_gating:
             damage = damage != 0
         else:
@@ -199,10 +216,12 @@ def build_h264_band_step_fn(width: int, stripe_h: int, n_stripes: int,
                             ops: StepOps = KERNEL_OPS, scratch=None):
     """Band P step: the stock P encode over a ``band_rows``-row band of
     the frame and the reference planes, as views (``narrow`` on whole
-    rows); the start row is an argument, so one step serves every band
-    position. Every per-row input (slice-header events, frame_num, qp)
-    is a slice of the full-frame arrays the stock step takes, so a
-    full-frame band is byte-identical to the stock P step.
+    rows; the chroma rows in the ratio of the planes handed over: halved
+    at 4:2:0, whole at 4:4:4); the start row is an argument, so one step
+    serves every band position. Every per-row input (slice-header
+    events, frame_num, qp) is a slice of the full-frame arrays the stock
+    step takes, so a full-frame band is byte-identical to the stock P
+    step.
 
     Motion candidates require ``band_rows`` to cover whole stripes: the
     encoder's search-window clamp must equal the decoder's picture-edge
@@ -228,15 +247,16 @@ def build_h264_band_step_fn(width: int, stripe_h: int, n_stripes: int,
             return t.narrow(0, top, n)
 
         def planes(py, pu, pv):          # the band rows of Y, U and V
-            return (rows(py, y0, bh), rows(pu, y0 // 2, bh // 2),
-                    rows(pv, y0 // 2, bh // 2))
+            cdiv = py.shape[0] // pu.shape[0]
+            return (rows(py, y0, bh), rows(pu, y0 // cdiv, bh // cdiv),
+                    rows(pv, y0 // cdiv, bh // cdiv))
 
         # the reference's prev_out is the whole frame; rows outside the
         # band are clean by construction (the band covers every row the
         # probe found dirty, so frame == prev there), so K1 updating prev
         # over the band rows alone leaves prev equal to the frame
-        y, u, v, _ = ops.csc420_damage(rows(frame, y0, bh),
-                                       rows(prev, y0, bh), 1)
+        y, u, v, _ = ops.csc_damage(rows(frame, y0, bh), rows(prev, y0, bh),
+                                    1)
         ref = planes(ref_y, ref_u, ref_v)
         out = None
         if motion and scratch is not None:
@@ -272,11 +292,13 @@ class H264EncoderSession:
         _check_slice(settings)
         self.device = resolve_device(device)
         self.settings = settings
-        self._ops = KERNEL_OPS
+        self.fullcolor = bool(settings.fullcolor)
+        self._ops = KERNEL_OPS_444 if self.fullcolor else KERNEL_OPS
         self.grid = plan_h264_grid(settings)
         g = self.grid
         self.n_rows = g.n_stripes * g.rows_per_stripe
-        self._e_cap, self._w_cap, self._out_cap = h264_buffer_caps(g)
+        self._e_cap, self._w_cap, self._out_cap = h264_buffer_caps(
+            g, self.fullcolor)
         self._candidates = _motion_candidates(settings)
         dev = self.device
 
@@ -286,17 +308,19 @@ class H264EncoderSession:
         self._sent = zeros(g.n_stripes)
         self._fnum = zeros(g.n_stripes)
         self._prev = zeros(g.height, g.width, 3, dtype=torch.uint8)
+        cdiv = 1 if self.fullcolor else 2
+        ch, cw = g.height // cdiv, g.width // cdiv
         self._ref_y = zeros(g.height, g.width, dtype=torch.uint8)
-        self._ref_u = zeros(g.height // 2, g.width // 2, dtype=torch.uint8)
-        self._ref_v = zeros(g.height // 2, g.width // 2, dtype=torch.uint8)
+        self._ref_u = zeros(ch, cw, dtype=torch.uint8)
+        self._ref_v = zeros(ch, cw, dtype=torch.uint8)
         # where the motion search writes its prediction (never the
         # reference planes, which the P coder rewrites in place)
         self._scratch = None
         if len(self._candidates) > 1:
             self._scratch = (
                 zeros(g.height, g.width, dtype=torch.uint8),
-                zeros(g.height // 2, g.width // 2, dtype=torch.uint8),
-                zeros(g.height // 2, g.width // 2, dtype=torch.uint8),
+                zeros(ch, cw, dtype=torch.uint8),
+                zeros(ch, cw, dtype=torch.uint8),
                 zeros(self.n_rows, g.mb_w, 2))
         self._i_step = self._build_step("i")
         self._p_step = self._build_step("p")
@@ -306,7 +330,8 @@ class H264EncoderSession:
         # overflow: the lock keeps a concurrent set from being lost
         self._drop_lock = threading.Lock()
         self._cap_gen = 0   # buffer-growth generation
-        self._sps_pps = hcodec.write_sps(g.width, g.stripe_h) \
+        self._sps_pps = hcodec.write_sps(
+            g.width, g.stripe_h, chroma_format=3 if self.fullcolor else 1) \
             + hcodec.write_pps()
 
         def events(fn):

@@ -32,7 +32,7 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = ("csc420_damage", "mb_encode", "cavlc_events", "pack_stream",
            "motion_select", "row_damage_probe", "jpeg_forward",
            "jpeg_events", "jpeg_pack", "synthetic_frame", "pad_frame",
-           "watermark_blend", "errors")
+           "watermark_blend", "csc444_damage", "mb_encode444", "errors")
 LIBRARY = "libselkies_cuda.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -54,6 +54,11 @@ ENTRIES = {
     "synthetic_frame": [_P] + [_I] * 3,
     "pad_frame": [_P] * 2 + [_I] * 4,
     "watermark_blend": [_P] * 3 + [_I] * 6,
+    "csc444_damage": [_P] * 6 + [_I] * 3,
+    "mb_encode_i444": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 2,
+    "mb_encode_p444": [_P] * 16 + [_I] * 2,
+    "cavlc_events444": [_P] * 4 + [_I] * 3,
+    "motion_select444": [_P] * 6 + [_I] * 4 + [_P] * 4,
 }
 
 #: launches per C entry since the last :func:`reset_launches`
@@ -202,6 +207,7 @@ def render_tables_header() -> str:
     lines.append(arr("K_TZC", _TZC_PACK))
     lines.append(arr("K_RB", _RB_PACK))
     lines.append(arr("K_CBP2CODE", HT.CBP_INTER_CBP2CODE))
+    lines.append(arr("K_CBP444", HT.CBP444_INTER_CBP2CODE))
     lines.append(arr("K_MV_LAMBDA", MV_LAMBDA_NP))
     m = ",".join(float(v).hex() + "f" for v in _CSC_601_FULL.reshape(-1))
     lines.append(f"static __constant__ float K_CSC[9] = {{{m}}};\n")

@@ -10,7 +10,9 @@ payload; payloads are int64 here (uint32 has no shifts on the CPU).
 It also holds the motion search of the P path: the scroll candidate set,
 the MV lambda, and :func:`motion_select`, the wrapper of kernel K5
 (csrc/motion_select.cu) beside its plain version
-:func:`motion_select_plain`.
+:func:`motion_select_plain`, with the 4:4:4 entry :func:`motion_select444`
+(full-resolution chroma shifted like luma) beside
+:func:`motion_select444_plain`.
 """
 
 from __future__ import annotations
@@ -228,46 +230,50 @@ def _sad_mb16(diff):
     return diff.reshape(H // 16, 16, W // 16, 16).sum((1, 3))
 
 
-def motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
-                        win: int, out=None):
-    """Pick one candidate MV per macroblock: argmin (first index on ties)
-    over SAD(luma) + lambda(qp_row) * (se_bits(4dx) + se_bits(4dy)).
-    Vertical shifts clamp inside ``win``-row windows (the stripe), and
-    horizontal ones at the picture width. -> (pred_y, pred_u, pred_v)
-    uint8 and the (R, M, 2) int32 quarter-pel (mvx, mvy) field, copied
-    into ``out`` when it is given."""
+def _select(cur_y, ry_w, qp_rows, candidates):
+    """(R, M) index of each MB's candidate: argmin (first index on ties)
+    over SAD(luma) + lambda(qp_row) * (se_bits(4dx) + se_bits(4dy))."""
     H, W = cur_y.shape
-    R, M = H // 16, W // 16
-    S = H // win
-    dev = cur_y.device
     cur = cur_y.to(torch.int32)
-    ry_w = ref_y.to(torch.int32).reshape(S, win, W)
-    ru_w = ref_u.to(torch.int32).reshape(S, win // 2, W // 2)
-    rv_w = ref_v.to(torch.int32).reshape(S, win // 2, W // 2)
-    lam = torch.as_tensor(MV_LAMBDA_NP, device=dev)[
+    lam = torch.as_tensor(MV_LAMBDA_NP, device=cur_y.device)[
         torch.clamp(qp_rows.to(torch.int64), 0, 51)]           # (R,)
-
     costs = []
     for dy, dx in candidates:
         sh = _hshift(_vshift(ry_w, dy), dx).reshape(H, W)
         bits = se_bits(4 * dx) + se_bits(4 * dy)
         costs.append(_sad_mb16((cur - sh).abs()) + lam[:, None] * bits)
-    sel = torch.argmin(torch.stack(costs), 0)                   # (R, M)
+    return torch.argmin(torch.stack(costs), 0)
 
+
+def _motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
+                         win: int, out, full_chroma: bool):
+    H, W = cur_y.shape
+    S = H // win
+    dev = cur_y.device
+    cdiv = 1 if full_chroma else 2
+    ry_w = ref_y.to(torch.int32).reshape(S, win, W)
+    ru_w = ref_u.to(torch.int32).reshape(S, win // cdiv, W // cdiv)
+    rv_w = ref_v.to(torch.int32).reshape(S, win // cdiv, W // cdiv)
+    sel = _select(cur_y, ry_w, qp_rows, candidates)             # (R, M)
+
+    def chroma(p, dy, dx):
+        if full_chroma:
+            return _hshift(_vshift(p, dy), dx)
+        return _shift_chroma(p, dy, dx)
     sel_y = sel.repeat_interleave(16, 0).repeat_interleave(16, 1)
-    sel_c = sel.repeat_interleave(8, 0).repeat_interleave(8, 1)
+    sel_c = sel.repeat_interleave(16 // cdiv, 0).repeat_interleave(
+        16 // cdiv, 1)
+    cshape = (H // cdiv, W // cdiv)
     pred_y = torch.zeros((H, W), dtype=torch.int32, device=dev)
-    pred_u = torch.zeros((H // 2, W // 2), dtype=torch.int32, device=dev)
+    pred_u = torch.zeros(cshape, dtype=torch.int32, device=dev)
     pred_v = torch.zeros_like(pred_u)
     for k, (dy, dx) in enumerate(candidates):
         pred_y = torch.where(
             sel_y == k, _hshift(_vshift(ry_w, dy), dx).reshape(H, W), pred_y)
-        pred_u = torch.where(
-            sel_c == k, _shift_chroma(ru_w, dy, dx).reshape(H // 2, W // 2),
-            pred_u)
-        pred_v = torch.where(
-            sel_c == k, _shift_chroma(rv_w, dy, dx).reshape(H // 2, W // 2),
-            pred_v)
+        pred_u = torch.where(sel_c == k, chroma(ru_w, dy, dx).reshape(cshape),
+                             pred_u)
+        pred_v = torch.where(sel_c == k, chroma(rv_w, dy, dx).reshape(cshape),
+                             pred_v)
     cand_q = torch.as_tensor(np.asarray(candidates, np.int32)[:, ::-1] * 4,
                              device=dev)
     res = (pred_y.to(torch.uint8), pred_u.to(torch.uint8),
@@ -277,6 +283,28 @@ def motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
     for o, r in zip(out, res):
         o.copy_(r)
     return tuple(out)
+
+
+def motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
+                        win: int, out=None):
+    """Pick one candidate MV per macroblock: argmin (first index on ties)
+    over SAD(luma) + lambda(qp_row) * (se_bits(4dx) + se_bits(4dy)).
+    Vertical shifts clamp inside ``win``-row windows (the stripe), and
+    horizontal ones at the picture width. -> (pred_y, pred_u, pred_v)
+    uint8 and the (R, M, 2) int32 quarter-pel (mvx, mvy) field, copied
+    into ``out`` when it is given."""
+    return _motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows,
+                                candidates, win, out, False)
+
+
+def motion_select444_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
+                           win: int, out=None):
+    """The 4:4:4 search (the reference's ``_motion_select444``): the same
+    luma-SAD choice as :func:`motion_select_plain`, but the full-
+    resolution chroma planes ride the luma's full-pel shift, with the
+    luma's window and width clamps (no eighth-sample interpolation)."""
+    return _motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows,
+                                candidates, win, out, True)
 
 
 def candidate_table(candidates) -> torch.Tensor:
@@ -289,6 +317,36 @@ def candidate_table(candidates) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(c))
 
 
+def _motion_select(entry, plain, cdiv, cur_y, ref_y, ref_u, ref_v,
+                   qp_rows, candidates, win, out):
+    H, W = cur_y.shape
+    R, M = H // 16, W // 16
+    dev = cur_y.device
+    if H % 16 or W % 16 or win % 16 or H % win:
+        raise ValueError("planes must tile into MBs and ``win``-row windows")
+    cshape = (H // cdiv, W // cdiv)
+    for t, n, shp in ((cur_y, "cur_y", (H, W)), (ref_y, "ref_y", (H, W)),
+                      (ref_u, "ref_u", cshape), (ref_v, "ref_v", cshape)):
+        _check(t, n, torch.uint8, shp, dev)
+    _check(qp_rows, "qp_rows", torch.int32, (R,), dev)
+    table = candidate_table(candidates)
+    if _on_cpu(cur_y):
+        return plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates, win,
+                     out)
+    if out is None:
+        out = (torch.empty((H, W), dtype=torch.uint8, device=dev),
+               torch.empty(cshape, dtype=torch.uint8, device=dev),
+               torch.empty(cshape, dtype=torch.uint8, device=dev),
+               torch.empty((R, M, 2), dtype=torch.int32, device=dev))
+    for t, n, dt, shp in zip(out, ("pred_y", "pred_u", "pred_v", "mv"),
+                             (torch.uint8,) * 3 + (torch.int32,),
+                             ((H, W), cshape, cshape, (R, M, 2))):
+        _check(t, n, dt, shp, dev)
+    _cuda.launch(entry, cur_y, ref_y, ref_u, ref_v, qp_rows, table,
+                 len(table), H, W, win, *out)
+    return tuple(out)
+
+
 def motion_select(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
                   win: int, out=None):
     """K5 (csrc/motion_select.cu) for CUDA tensors, else
@@ -296,33 +354,18 @@ def motion_select(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
     pred_u, pred_v, mv) preallocated outputs (the session's scratch); the
     prediction never lands in the reference planes, which the P coder
     rewrites afterwards."""
-    H, W = cur_y.shape
-    R, M = H // 16, W // 16
-    dev = cur_y.device
-    if H % 16 or W % 16 or win % 16 or H % win:
-        raise ValueError("planes must tile into MBs and ``win``-row windows")
-    for t, n, shp in ((cur_y, "cur_y", (H, W)), (ref_y, "ref_y", (H, W)),
-                      (ref_u, "ref_u", (H // 2, W // 2)),
-                      (ref_v, "ref_v", (H // 2, W // 2))):
-        _check(t, n, torch.uint8, shp, dev)
-    _check(qp_rows, "qp_rows", torch.int32, (R,), dev)
-    table = candidate_table(candidates)
-    if _on_cpu(cur_y):
-        return motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows,
-                                   candidates, win, out)
-    if out is None:
-        out = (torch.empty((H, W), dtype=torch.uint8, device=dev),
-               torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev),
-               torch.empty((H // 2, W // 2), dtype=torch.uint8, device=dev),
-               torch.empty((R, M, 2), dtype=torch.int32, device=dev))
-    for t, n, dt, shp in zip(out, ("pred_y", "pred_u", "pred_v", "mv"),
-                             (torch.uint8,) * 3 + (torch.int32,),
-                             ((H, W), (H // 2, W // 2), (H // 2, W // 2),
-                              (R, M, 2))):
-        _check(t, n, dt, shp, dev)
-    _cuda.launch("motion_select", cur_y, ref_y, ref_u, ref_v, qp_rows,
-                 table, len(table), H, W, win, *out)
-    return tuple(out)
+    return _motion_select("motion_select", motion_select_plain, 2, cur_y,
+                          ref_y, ref_u, ref_v, qp_rows, candidates, win, out)
+
+
+def motion_select444(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
+                     win: int, out=None):
+    """K5's 4:4:4 entry (csrc/motion_select.cu:motion_select444) for CUDA
+    tensors, else :func:`motion_select444_plain`: chroma planes and their
+    predictions are full resolution; otherwise as :func:`motion_select`."""
+    return _motion_select("motion_select444", motion_select444_plain, 1,
+                          cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
+                          win, out)
 
 
 def _on_cpu(t) -> bool:

@@ -39,7 +39,8 @@ Kernel layouts (R MB rows, M MB columns):
   pred mode, qp delta; P: skip run — filled by the packer —, mb_type,
   mvd x/y, cbp, qp delta).
 - ``ev_pay`` int32 / ``ev_nb`` uint8 (R, M, SB): every block's CAVLC
-  slots back to back in bitstream order (SB = 876 for I, 872 for P); a
+  slots back to back in bitstream order (SB = 876 for I, 872 for P;
+  ops/h264_planes444.py has the 4:4:4 layouts, which K4 packs too); a
   block's slots follow ``cavlc_events_planes``: [coeff_token, 3 signs,
   mc levels, total_zeros, mc-1 runs]. Payloads are zero where nbits is.
 """
@@ -858,17 +859,21 @@ def _pad_left_mb(mv):
     return torch.cat([torch.zeros_like(mv[:, :1]), mv[:, :-1]], 1)
 
 
-def _check_planes(y, pairs):
+def _check_planes(y, pairs, cdiv: int = 2):
+    """uint8 planes on y's device: luma (names ending in y) H x W, chroma
+    H/cdiv x W/cdiv."""
     H, W = y.shape
     if H % 16 or W % 16:
         raise ValueError("planes must tile into 16x16 MBs")
     for t, n in pairs:
-        shp = (H, W) if n.endswith("y") else (H // 2, W // 2)
+        shp = (H, W) if n.endswith("y") else (H // cdiv, W // cdiv)
         _check(t, n, torch.uint8, shp, y.device)
 
 
 def _mb_encode(name, plain, y, u, v, qp, send, rows_per_stripe,
-               ref_y, ref_u, ref_v):
+               ref_y, ref_u, ref_v, cdiv: int = 2, n_blocks: int = N_BLOCKS):
+    """An I entry (K2-I, K14): checks, then the kernel or ``plain``;
+    chroma planes are H/cdiv x W/cdiv, ``lv`` has ``n_blocks`` blocks."""
     H, W = y.shape
     dev = y.device
     R, M = H // 16, W // 16
@@ -876,19 +881,43 @@ def _mb_encode(name, plain, y, u, v, qp, send, rows_per_stripe,
         raise ValueError("MB rows must tile into stripes")
     S = R // rows_per_stripe
     _check_planes(y, ((y, "y"), (u, "u"), (v, "v"), (ref_y, "ref_y"),
-                      (ref_u, "ref_u"), (ref_v, "ref_v")))
+                      (ref_u, "ref_u"), (ref_v, "ref_v")), cdiv)
     _check(qp, "qp", torch.int32, (R,), dev)
     _check(send, "send", torch.int32, (S,), dev)
     if _on_cpu(y):
         return plain(y, u, v, qp, send, rows_per_stripe, ref_y, ref_u, ref_v)
-    lv, cbp, hdr_pay, hdr_nb = _mb_outputs(R, M, dev)
+    lv, cbp, hdr_pay, hdr_nb = _mb_outputs(R, M, dev, n_blocks)
     _cuda.launch(name, y, u, v, qp, send, rows_per_stripe, ref_y, ref_u,
                  ref_v, lv, cbp, hdr_pay, hdr_nb, R, M)
     return lv, cbp, hdr_pay, hdr_nb
 
 
-def _mb_outputs(R, M, dev):
-    return (torch.empty((R, M, N_BLOCKS, 16), dtype=torch.int16, device=dev),
+def _mb_encode_p(name, plain, y, u, v, qp, send_rows, pred_y, pred_u,
+                 pred_v, mv, ref_y, ref_u, ref_v, cdiv: int = 2,
+                 n_blocks: int = N_BLOCKS):
+    """A P entry (K2-P, K15), as :func:`_mb_encode`."""
+    H, W = y.shape
+    dev = y.device
+    R, M = H // 16, W // 16
+    _check_planes(y, ((y, "y"), (u, "u"), (v, "v"), (pred_y, "pred_y"),
+                      (pred_u, "pred_u"), (pred_v, "pred_v"),
+                      (ref_y, "ref_y"), (ref_u, "ref_u"), (ref_v, "ref_v")),
+                  cdiv)
+    _check(qp, "qp", torch.int32, (R,), dev)
+    _check(send_rows, "send_rows", torch.int32, (R,), dev)
+    if mv is not None:
+        _check(mv, "mv", torch.int32, (R, M, 2), dev)
+    if _on_cpu(y):
+        return plain(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv,
+                     ref_y, ref_u, ref_v)
+    lv, cbp, hdr_pay, hdr_nb = _mb_outputs(R, M, dev, n_blocks)
+    _cuda.launch(name, y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv,
+                 ref_y, ref_u, ref_v, lv, cbp, hdr_pay, hdr_nb, R, M)
+    return lv, cbp, hdr_pay, hdr_nb
+
+
+def _mb_outputs(R, M, dev, n_blocks: int = N_BLOCKS):
+    return (torch.empty((R, M, n_blocks, 16), dtype=torch.int16, device=dev),
             torch.empty((R, M), dtype=torch.int32, device=dev),
             torch.empty((R, M, HDR_SLOTS), dtype=torch.int32, device=dev),
             torch.empty((R, M, HDR_SLOTS), dtype=torch.int32, device=dev))
@@ -907,24 +936,9 @@ def mb_encode_p(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, ref_y,
     """K2, P entry (csrc/mb_encode.cu:mb_encode_p) for CUDA tensors, else
     :func:`mb_encode_p_plain`; same contract. ``send_rows`` (R,) int32 is
     the per-MB-row gate of the reference advance."""
-    H, W = y.shape
-    dev = y.device
-    R, M = H // 16, W // 16
-    _check_planes(y, ((y, "y"), (u, "u"), (v, "v"), (pred_y, "pred_y"),
-                      (pred_u, "pred_u"), (pred_v, "pred_v"),
-                      (ref_y, "ref_y"), (ref_u, "ref_u"), (ref_v, "ref_v")))
-    _check(qp, "qp", torch.int32, (R,), dev)
-    _check(send_rows, "send_rows", torch.int32, (R,), dev)
-    if mv is not None:
-        _check(mv, "mv", torch.int32, (R, M, 2), dev)
-    if _on_cpu(y):
-        return mb_encode_p_plain(y, u, v, qp, send_rows, pred_y, pred_u,
-                                 pred_v, mv, ref_y, ref_u, ref_v)
-    lv, cbp, hdr_pay, hdr_nb = _mb_outputs(R, M, dev)
-    _cuda.launch("mb_encode_p", y, u, v, qp, send_rows, pred_y, pred_u,
-                 pred_v, mv, ref_y, ref_u, ref_v, lv, cbp, hdr_pay, hdr_nb,
-                 R, M)
-    return lv, cbp, hdr_pay, hdr_nb
+    return _mb_encode_p("mb_encode_p", mb_encode_p_plain, y, u, v, qp,
+                        send_rows, pred_y, pred_u, pred_v, mv, ref_y, ref_u,
+                        ref_v)
 
 
 # ---------------------------------------------------------------------------
@@ -992,19 +1006,26 @@ def cavlc_events_plain(lv, cbp, intra: bool):
     return pay.to(torch.int32), nb.to(torch.uint8)
 
 
+def _cavlc_events(name, plain, n_blocks: int, sb: int, lv, cbp,
+                  intra: bool):
+    """A CAVLC entry (K3, K16): ``lv`` of ``n_blocks`` blocks in, ``sb``
+    slots per MB out."""
+    R, M = lv.shape[0], lv.shape[1]
+    _check(lv, "lv", torch.int16, (R, M, n_blocks, 16), lv.device)
+    _check(cbp, "cbp", torch.int32, (R, M), lv.device)
+    if _on_cpu(lv):
+        return plain(lv, cbp, intra)
+    ev_pay = torch.empty((R, M, sb), dtype=torch.int32, device=lv.device)
+    ev_nb = torch.empty((R, M, sb), dtype=torch.uint8, device=lv.device)
+    _cuda.launch(name, lv, cbp, ev_pay, ev_nb, R, M, int(intra))
+    return ev_pay, ev_nb
+
+
 def cavlc_events(lv, cbp, intra: bool):
     """K3 (csrc/cavlc_events.cu) for CUDA tensors, else
     :func:`cavlc_events_plain`."""
-    R, M = lv.shape[0], lv.shape[1]
-    _check(lv, "lv", torch.int16, (R, M, N_BLOCKS, 16), lv.device)
-    _check(cbp, "cbp", torch.int32, (R, M), lv.device)
-    if _on_cpu(lv):
-        return cavlc_events_plain(lv, cbp, intra)
-    sb = SB_I if intra else SB_P
-    ev_pay = torch.empty((R, M, sb), dtype=torch.int32, device=lv.device)
-    ev_nb = torch.empty((R, M, sb), dtype=torch.uint8, device=lv.device)
-    _cuda.launch("cavlc_events", lv, cbp, ev_pay, ev_nb, R, M, int(intra))
-    return ev_pay, ev_nb
+    return _cavlc_events("cavlc_events", cavlc_events_plain, N_BLOCKS,
+                         SB_I if intra else SB_P, lv, cbp, intra)
 
 
 # ---------------------------------------------------------------------------
@@ -1121,10 +1142,11 @@ def pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb,
                 row_id, qp, intra: bool, e_cap: int, w_cap: int,
                 out_cap: int) -> StreamOut:
     """K4 (csrc/pack_stream.cu) for CUDA tensors, else
-    :func:`pack_stream_plain`."""
+    :func:`pack_stream_plain`. The block slots per MB, SB, are read off
+    ``ev_pay``: 876 (I) / 872 (P) at 4:2:0, 1740 / 1728 at 4:4:4."""
     R, M = hdr_pay.shape[0], hdr_pay.shape[1]
     dev = hdr_pay.device
-    sb = SB_I if intra else SB_P
+    sb = ev_pay.shape[-1] if ev_pay.dim() == 3 else SB_I if intra else SB_P
     _check(hdr_pay, "hdr_pay", torch.int32, (R, M, HDR_SLOTS), dev)
     _check(hdr_nb, "hdr_nb", torch.int32, (R, M, HDR_SLOTS), dev)
     _check(ev_pay, "ev_pay", torch.int32, (R, M, sb), dev)
@@ -1154,8 +1176,9 @@ def pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb,
 # ---------------------------------------------------------------------------
 
 class StepOps(NamedTuple):
-    """The kernels of the main path, or their plain versions."""
-    csc420_damage: object
+    """The kernels of the main path, or their plain versions (this
+    module's for 4:2:0; ops/h264_planes444.py holds the 4:4:4 sets)."""
+    csc_damage: object
     mb_encode_i: object
     mb_encode_p: object
     cavlc_events: object

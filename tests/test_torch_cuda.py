@@ -8,8 +8,10 @@ scrolled and panned content for the motion search, neighbouring
 macroblocks with different vectors, an unaligned probe input; for the
 JPEG kernels 4:2:0 and 4:4:4, per-stripe tables at qualities 10 to 100
 and tables of 1/16 that expose one ulp of a coefficient, values past the
-category caps, and word and byte buffers too small) and must match it
-exactly, overflow flags included. Tolerance: 0.
+category caps, and word and byte buffers too small; for the H.264 4:4:4
+kernels K13-K16 and K5's 4:4:4 entry the same cases, the CSC over all
+2^24 byte triples and the fullcolor session) and must match it exactly,
+overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ from selkies_tpu_torch.codecs import h264 as hcodec
 from selkies_tpu_torch.codecs import jpeg as jtab
 from selkies_tpu_torch.ops import h264_encode as TE
 from selkies_tpu_torch.ops import h264_planes as HP
+from selkies_tpu_torch.ops import h264_planes444 as H4
 from selkies_tpu_torch.ops import jpeg_entropy as JE
 from selkies_tpu_torch.ops import jpeg_pipeline as JPP
 from selkies_tpu_torch.ops import jpeg_planes as JPL
@@ -472,3 +475,194 @@ def test_capture_depth_two_equals_depth_one_on_the_card(dev, mode,
         runs.append({fid: [c for c in got if c.frame_id == fid]
                      for fid in range(12)})
     assert runs[0] == runs[1] and all(runs[0].values())
+
+
+# ------------------------------------------------------------ H.264 4:4:4
+def _stage444(dev, H, W, sh, seed=0):
+    """K13..K14 outputs of a geometry at 4:4:4 (through the plain
+    versions): per-row qp, every other stripe sent."""
+    S, rps, R = H // sh, sh // 16, H // 16
+    f0, f1 = _frames(dev, H, W)
+    planes = H4.csc444_damage_plain(f1, f0.clone(), S)[:3]
+    qp = torch.full((R,), 26, dtype=torch.int32, device=dev)
+    qp[::2] = 44
+    send = torch.ones((S,), dtype=torch.int32, device=dev)
+    send[1::2] = 0
+    ref = [torch.zeros_like(p) for p in planes]
+    i_out = H4.mb_encode_i444_plain(*planes, qp, send, rps, *ref)
+    return S, rps, planes, qp, send, ref, i_out
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_csc444_damage(dev, geom):
+    H, W, sh = geom
+    f0, f1 = _frames(dev, H, W)
+    pk, pp = f0.clone(), f0.clone()
+    _same(list(H4.csc444_damage(f1, pk, H // sh)) + [pk],
+          list(H4.csc444_damage_plain(f1, pp, H // sh)) + [pp])
+
+
+def test_csc444_on_every_byte_triple(dev):
+    """All 2^24 RGB triples as one 4096x4096 frame: K13's float order
+    equals the plain version's (the reference's) on every one."""
+    v = torch.arange(1 << 24, dtype=torch.int64, device=dev)
+    rgb = torch.stack([(v >> 16) & 255, (v >> 8) & 255, v & 255], -1).to(
+        torch.uint8).reshape(4096, 4096, 3)
+    pk, pp = torch.zeros_like(rgb), torch.zeros_like(rgb)
+    _same(list(H4.csc444_damage(rgb, pk, 16)) + [pk],
+          list(H4.csc444_damage_plain(rgb, pp, 16)) + [pp])
+
+
+def _p444_call(p_fn, sel, planes, qp, send_rows, ref, cands, win):
+    if cands is None:
+        return p_fn(*planes, qp, send_rows, *ref, None, *ref)
+    *pred, mv = sel(planes[0], *ref, qp, cands, win)
+    return p_fn(*planes, qp, send_rows, *pred, mv, *ref)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("mode", ["i", "p0", "p"])
+def test_mb_encode444(dev, geom, mode):
+    S, rps, planes, qp, send, ref, _ = _stage444(dev, *geom)
+    if mode == "i":
+        base = [torch.zeros_like(p) for p in planes]
+    else:
+        base = [p.clone() for p in ref]
+        planes = tuple(255 - p for p in planes) if mode == "p0" else tuple(
+            torch.roll(p, (-2, 1), (0, 1)) for p in planes)
+    kref = [b.clone() for b in base]
+    pref = [b.clone() for b in base]
+    if mode == "i":
+        ko = H4.mb_encode_i444(*planes, qp, send, rps, *kref)
+        po = H4.mb_encode_i444_plain(*planes, qp, send, rps, *pref)
+    else:
+        cands = None if mode == "p0" else TE.scroll_candidates(4, 2)
+        send_rows = send.repeat_interleave(rps)
+        ko = _p444_call(H4.mb_encode_p444, TE.motion_select444, planes, qp,
+                        send_rows, kref, cands, 16 * rps)
+        po = _p444_call(H4.mb_encode_p444_plain, TE.motion_select444_plain,
+                        planes, qp, send_rows, pref, cands, 16 * rps)
+    _same(list(ko) + kref, list(po) + pref)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+@pytest.mark.parametrize("cands", ["small", "default"])
+def test_motion_select444(dev, geom, cands):
+    H, W, sh = geom
+    cands = TE.scroll_candidates(4, 2) if cands == "small" \
+        else TE.scroll_candidates()
+    S, rps, planes, qp, send, ref, _ = _stage444(dev, *geom)
+    ref = [p.clone() for p in planes]
+    cur = torch.roll(planes[0], -3, 0)
+    cur[:, W // 2:] = torch.roll(planes[0], -2, 1)[:, W // 2:]
+    _same(TE.motion_select444(cur, *ref, qp, cands, sh),
+          TE.motion_select444_plain(cur, *ref, qp, cands, sh))
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_cavlc444_and_pack(dev, geom):
+    H, W, sh = geom
+    S, rps, planes, qp, send, ref, i_out = _stage444(dev, *geom)
+    R, M = H // 16, W // 16
+    p_planes = tuple(torch.roll(p, (-2, 1), (0, 1)) for p in planes)
+    p_out = H4.mb_encode_p444_plain(*p_planes, qp, torch.ones(
+        (R,), dtype=torch.int32, device=dev), *ref, None, *ref)
+    for intra, (lv, cbp, hp, hn) in ((True, i_out), (False, p_out)):
+        ev = H4.cavlc_events444(lv, cbp, intra)
+        _same(ev, H4.cavlc_events444_plain(lv, cbp, intra))
+        fn = hcodec.slice_header_events if intra \
+            else hcodec.p_slice_header_events
+        pay, nb = fn(M, rps)
+        rhp = torch.as_tensor(np.tile(pay.astype(np.int32), (S, 1)),
+                              device=dev)
+        rhn = torch.as_tensor(np.tile(nb, (S, 1)), device=dev)
+        rid = torch.arange(R, dtype=torch.int32, device=dev)
+        for w_cap, out_cap in ((3072, 1 << 17), (16, 1 << 17), (3072, 64)):
+            args = (hp, hn, *ev, rhp, rhn, rid, qp, intra, 10 ** 6, w_cap,
+                    out_cap)
+            _same(HP.pack_stream(*args), HP.pack_stream_plain(*args))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_chain444_on_noise_at_random_qp(dev, seed):
+    """Noise frames at per-row qp drawn from 0..51, I then P with
+    motion: every 4:4:4 stage's kernel output equals the plain
+    version's."""
+    H, W, sh = 64, 96, 32
+    S, rps, R, M = H // sh, sh // 16, H // 16, W // 16
+    rng = np.random.default_rng(200 + seed)
+    f0, f1 = (torch.as_tensor(rng.integers(0, 256, (H, W, 3),
+                                           dtype=np.uint8), device=dev)
+              for _ in range(2))
+    qp = torch.as_tensor(rng.integers(0, 52, R).astype(np.int32), device=dev)
+    send = torch.ones((S,), dtype=torch.int32, device=dev)
+    ref = [torch.zeros((H, W), dtype=torch.uint8, device=dev)
+           for _ in range(3)]
+    cands = TE.scroll_candidates(4, 2)
+    for intra, frame in ((True, f0), (False, f1)):
+        planes = H4.csc444_damage_plain(frame, f0.clone(), S)[:3]
+        kref = [r.clone() for r in ref]
+        if intra:
+            ko = H4.mb_encode_i444(*planes, qp, send, rps, *kref)
+            po = H4.mb_encode_i444_plain(*planes, qp, send, rps, *ref)
+        else:
+            send_rows = send.repeat_interleave(rps)
+            ko = _p444_call(H4.mb_encode_p444, TE.motion_select444, planes,
+                            qp, send_rows, kref, cands, sh)
+            po = _p444_call(H4.mb_encode_p444_plain,
+                            TE.motion_select444_plain, planes, qp, send_rows,
+                            ref, cands, sh)
+        _same(list(ko) + kref, list(po) + ref)
+        ev = H4.cavlc_events444(ko[0], ko[1], intra)
+        _same(ev, H4.cavlc_events444_plain(ko[0], ko[1], intra))
+
+
+def test_444_frame_entry_points_run_on_the_card(dev):
+    H, W = 64, 80
+    R, M = H // 16, W // 16
+    rng = np.random.default_rng(12)
+    y, u, v = (rng.integers(0, 256, (H, W)).astype(np.int32)
+               for _ in range(3))
+    qp = np.array([8, 30, 51, 19], np.int32)
+    e_cap, w_cap = 9 + M * H4.SLOTS_MB_444 + 2, 3072
+    hdr = hcodec.slice_header_events(M, R)
+    p_hdr = hcodec.p_slice_header_events(M, R)
+    outs = {}
+    for d in (None, "cpu"):
+        i_out, rec = H4.h264_encode_yuv444(y, u, v, qp, *hdr, e_cap, w_cap,
+                                           want_recon=True, device=d)
+        p_out, _ = H4.h264_encode_p_yuv444(
+            np.roll(y, 3, 0), u, v, *rec, qp, *p_hdr, np.ones(R, np.int32),
+            e_cap, w_cap, candidates=TE.scroll_candidates(4, 2), device=d)
+        outs[d] = (i_out, p_out)
+    assert outs[None][0].words.device.type == "cuda"
+    for k, p in zip(outs[None], outs["cpu"]):
+        _same([k.words, k.total_bits], [p.words, p.total_bits])
+        assert bool(k.overflow) == bool(p.overflow)
+
+
+@pytest.mark.parametrize("partial", [False, True])
+def test_444_session_on_the_card(dev, partial):
+    """The fullcolor session on the card against the same session on
+    its plain versions (on the card), through a scroll and a typed band:
+    equal chunks and state."""
+    from selkies_tpu_torch.engine.h264_encoder import H264EncoderSession
+    from selkies_tpu_torch.engine.types import CaptureSettings
+    kw = dict(capture_width=128, capture_height=64, stripe_height=32,
+              output_mode="h264", fullcolor=True, h264_motion_vrange=4,
+              h264_motion_hrange=2, h264_partial_encode=partial,
+              paint_over_delay_frames=2)
+    kern = H264EncoderSession(CaptureSettings(**kw))
+    plain = H264EncoderSession(CaptureSettings(**kw))
+    plain._ops = H4.PLAIN_OPS_444
+    plain._rebuild_steps()
+    f0, _ = _frames(dev, 64, 128)
+    typed = torch.roll(f0, 5, 0)
+    typed[40:48, 8:40] = 20
+    for frame in (f0, torch.roll(f0, 5, 0), typed, typed, typed, f0):
+        a = kern.finalize(kern.encode(frame))
+        b = plain.finalize(plain.encode(frame))
+        assert [(c.stripe_y, c.is_idr, c.payload) for c in a] \
+            == [(c.stripe_y, c.is_idr, c.payload) for c in b]
+        for k in ("_ref_y", "_ref_u", "_ref_v", "_prev", "_sent", "_fnum"):
+            assert torch.equal(getattr(kern, k), getattr(plain, k)), k

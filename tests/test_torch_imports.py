@@ -141,7 +141,6 @@ def test_loop_entry_points_default_to_the_card(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("change,item", [
     ({"h264_roi_qp": True}, "A16"),
-    ({"fullcolor": True}, "A10"),
     ({"stripe_devices": 2}, "A11"),
 ])
 def test_settings_outside_the_slice_raise(change, item):
@@ -164,11 +163,13 @@ def _encode_two_frames(settings):
 
 @pytest.mark.parametrize("change", [{"h264_motion_vrange": 4},
                                     {"h264_partial_encode": True},
-                                    {"watermark_path": "/nonexistent.png"}])
+                                    {"watermark_path": "/nonexistent.png"},
+                                    {"fullcolor": True}])
 def test_ported_settings_build_and_encode(change):
-    """Motion search (ROADMAP A7), the band path (A8) and the watermark
-    (A5; an unreadable PNG degrades to none, as in the reference), which
-    used to raise, now build and encode a P frame on the CPU."""
+    """Motion search (ROADMAP A7), the band path (A8), the watermark
+    (A5; an unreadable PNG degrades to none, as in the reference) and
+    4:4:4 (A10), which used to raise, now build and encode a P frame on
+    the CPU."""
     kw = dict(capture_width=64, capture_height=64, stripe_height=32,
               output_mode="h264", h264_motion_vrange=0,
               h264_motion_hrange=2, h264_partial_encode=False)
@@ -201,7 +202,7 @@ def test_tables_header_is_rendered_from_the_tables():
     "CT_LEN_NP", "CT_CODE_NP", "CT_CDC_LEN_NP", "CT_CDC_CODE_NP",
     "TZ_LEN_NP", "TZ_CODE_NP", "TZ_CDC_LEN_NP", "TZ_CDC_CODE_NP",
     "RB_LEN_NP", "RB_CODE_NP", "MF_NP", "V_NP", "QPC_NP", "POS_CLS_NP",
-    "ZIGZAG4_NP", "CBP_INTER_CBP2CODE"])
+    "ZIGZAG4_NP", "CBP_INTER_CBP2CODE", "CBP444_INTER_CBP2CODE"])
 def test_table_copy_equals_reference(name):
     from selkies_tpu.codecs import h264_tables as ref
     a, b = getattr(port_tables, name), getattr(ref, name)
