@@ -7,7 +7,8 @@ Builds the CUDA kernels of selkies_tpu_torch from csrc/ and drives two
 them, each beside the same sequence through the kernels' plain PyTorch
 versions on the same card, requiring equal chunks and equal state frame
 by frame, then the capture loop for both codecs, then both H.264
-sequences and the H.264 capture loop again at 4:4:4:
+sequences and the H.264 capture loop again at 4:4:4, then four seats of
+each codec through the multi-seat encoders and their capture loop:
 
 1. the stock configuration (zero-MV P frames, no band path): IDR,
    damaged and idle P frames, paint-over, a forced IDR and one overflow
@@ -42,7 +43,20 @@ sequences and the H.264 capture loop again at 4:4:4:
    stock P step with motion) at ``fullcolor=True``, kernels against plain,
    where K13-K16 and K5's 4:4:4 entry replace K1, K2, K3 and K5's 4:2:0
    entry, which must not launch; then the capture loop of 4 for H.264
-   at fullcolor, depth 2 against depth 1.
+   at fullcolor, depth 2 against depth 1;
+6. seats (multi-seat, the ``tpu_seats`` path): ``MultiSeatEncoder``
+   (JPEG) and ``MultiSeatH264Encoder`` (4:2:0, motion vrange 24 /
+   hrange 8) at 4 seats of 1920x1080, every kernel launched once a tick
+   for all seats (K4, K9 and K10 through their seat entries), over a
+   script of a full first tick, seats that differ (idle, typing, fully
+   damaged, scrolling), idle and paint-over ticks, a forced tick and a
+   planned overflow of one seat's byte buffer with the growth and that
+   seat's recovery. The kernel path must equal the plain path (chunks
+   and state), each seat its own single-seat session (so the seats that
+   did not overflow are untouched by the one that did), and
+   ``MultiSeatCapture`` at depth 2 its depth-1 run. Launches per tick
+   are counted at 1, 2, 4 and 8 seats (each kernel once, whatever the
+   seat count), and a full-damage tick is timed at each.
 
 Each run resets the launch counters first and requires every kernel of
 its path to have launched. Then each kernel is held against its plain
@@ -92,6 +106,9 @@ from selkies_tpu_torch.ops.h264_encode import (motion_select,
                                                motion_select444_plain,
                                                motion_select_plain,
                                                scroll_candidates)
+from selkies_tpu_torch.parallel import (MultiSeatCapture, MultiSeatEncoder,
+                                        MultiSeatH264Encoder,
+                                        synthetic_seat_frames)
 from selkies_tpu_torch.trace import tracer
 
 SEED = 20261017
@@ -137,6 +154,12 @@ KERNELS = {
                         "selkies_tpu/ops/h264_planes444.py:109"),
     "motion_select444": ("selkies_tpu_torch/csrc/motion_select.cu",
                          "selkies_tpu/ops/h264_planes444.py:242"),
+    "pack_stream_seats": ("selkies_tpu_torch/csrc/pack_stream.cu",
+                          "selkies_tpu/parallel/h264_seats.py:98"),
+    "jpeg_pack_seats": ("selkies_tpu_torch/csrc/jpeg_pack.cu",
+                        "selkies_tpu/parallel/seats.py:93"),
+    "synthetic_frames": ("selkies_tpu_torch/csrc/synthetic_frame.cu",
+                         "selkies_tpu/parallel/seats.py:267"),
 }
 #: kernels each path launches
 STOCK_PATH = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
@@ -153,6 +176,18 @@ CAPTURE444_PATH = DEFAULT444_PATH + ("synthetic_frame", "pad_frame",
 #: the 4:2:0 kernels whose places the 4:4:4 ones take
 NOT_ON_444 = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
               "motion_select")
+#: one tick of the seats path, by codec and mode
+SEATS_JPEG_TICK = ("row_damage_probe", "jpeg_forward", "jpeg_events",
+                   "jpeg_pack_seats")
+SEATS_H264_I = ("csc420_damage", "mb_encode_i", "cavlc_events",
+                "pack_stream_seats")
+SEATS_H264_P = ("csc420_damage", "motion_select", "mb_encode_p",
+                "cavlc_events", "pack_stream_seats")
+SEATS_PATH = tuple(dict.fromkeys(SEATS_JPEG_TICK + SEATS_H264_I
+                                 + SEATS_H264_P + ("synthetic_frames",)))
+SEATS = 4                        # seats of the sixth path
+SEAT_COUNTS = (1, 2, 4, 8)       # seat counts of the launch and time rows
+NOISY_SEAT = 2                   # the seat whose buffer the script overflows
 CAPTURE_FRAMES = 30              # frames of each capture-loop run
 WM_LOCATION = 6                  # bottom-right, the setting's default
 
@@ -1156,13 +1191,20 @@ def seeded_watermark(settings, frame_w: int, frame_h: int, device):
 
 def capture_run(mode: str, depth: int, fps: float) -> dict:
     """``ScreenCapture("synthetic")`` until CAPTURE_FRAMES frames were
+    delivered; the record of :func:`traced_capture`."""
+    return traced_capture(ScreenCapture("synthetic"),
+                          capture_settings(mode, depth, fps),
+                          f"{mode} capture (depth {depth})")
+
+
+def traced_capture(cap, settings, what: str) -> dict:
+    """Run the capture loop ``cap`` until CAPTURE_FRAMES frames were
     delivered. -> {"chunks": frame_id -> chunks, "order": frame ids in
     delivery order, "dispatch": frame_id -> (t0, t1) of the encode
     dispatch (the tracer's span), "deliver": frame_id -> (t0, t1) of the
     finalize + callback, "stages": frame_id -> {stage: ns}, the tracer's
     spans summed per frame}."""
     got, deliver, died = [], {}, []
-    cap = ScreenCapture("synthetic")
     cap.on_death = died.append
     inner = cap._deliver
 
@@ -1175,7 +1217,7 @@ def capture_run(mode: str, depth: int, fps: float) -> dict:
     tracer.clear()
     tracer.enable()
     try:
-        cap.start_capture(got.append, capture_settings(mode, depth, fps))
+        cap.start_capture(got.append, settings)
         deadline = time.monotonic() + 120
         while len(deliver) < CAPTURE_FRAMES and not died \
                 and time.monotonic() < deadline:
@@ -1193,10 +1235,9 @@ def capture_run(mode: str, depth: int, fps: float) -> dict:
     finally:
         tracer.disable()
         tracer.clear()
-    check(not died, f"{mode} capture (depth {depth}) died: {died[:1]!r}")
+    check(not died, f"{what} died: {died[:1]!r}")
     check(len(deliver) >= CAPTURE_FRAMES,
-          f"{mode} capture (depth {depth}) delivered {len(deliver)} frames "
-          "in 120 s")
+          f"{what} delivered {len(deliver)} frames in 120 s")
     order = list(dict.fromkeys(c.frame_id for c in got))
     chunks = {fid: [dataclasses.astuple(c) for c in got
                     if c.frame_id == fid] for fid in order}
@@ -1359,6 +1400,401 @@ def frame_kernel_checks(dev) -> dict:
 
 
 
+# ------------------------------------------------------------ seats path
+def seat_settings(mode: str, **over) -> CaptureSettings:
+    """The sixth path's settings: 1920x1080 a seat at the codec's
+    defaults (H.264: motion vrange 24 / hrange 8, 4:2:0 stock step; the
+    seats read no band path), paint-over after 4 idle frames."""
+    kw = dict(capture_width=WIDTH, capture_height=HEIGHT,
+              paint_over_delay_frames=4)
+    if mode == "h264":
+        kw["output_mode"] = "h264"
+    kw.update(over)
+    return CaptureSettings(**kw)
+
+
+def seat_encoder(mode: str, n: int, plain: bool = False, **over):
+    """A multi-seat encoder on the card; ``plain`` puts it on the plain
+    versions (on the card)."""
+    if mode == "h264":
+        enc = MultiSeatH264Encoder(seat_settings(mode, **over), n)
+        ops = HP.SEAT_PLAIN_OPS
+    else:
+        enc = MultiSeatEncoder(seat_settings(mode, **over), n)
+        ops = JPP.SEAT_PLAIN_OPS
+    if plain:
+        enc._ops = ops
+        enc._rebuild_steps()
+    return enc
+
+
+def seat_noise(dev, GH: int, W: int) -> torch.Tensor:
+    rng = np.random.default_rng(SEED + 5)
+    return torch.as_tensor(rng.integers(0, 256, (GH, W, 3), dtype=np.uint8),
+                           device=dev)
+
+
+def seat_script(dev, GH: int, W: int) -> list:
+    """The sixth path's ticks, [(name, (SEATS, GH, W, 3) frames, force)]:
+    a full first tick (K10's seat entry); seats that differ (0 idle, 1
+    typing in one stripe, 2 fully damaged, 3 scrolled by 24 rows, then
+    by 7 more); idle ticks until the paint-overs (seats 0 and 1 at the
+    fifth tick, 2 and 3 at the seventh); a forced tick; a noise frame on
+    seat NOISY_SEAT alone (the others typing), which overflows its byte
+    buffer; that seat's
+    recovery (H.264: an IDR batch of every seat; JPEG: its full resend);
+    a P tick at the grown caps."""
+    base = FR.synthetic_frames(GH, W, SEATS, 0, dev)
+
+    def pattern(tick):                  # one frame, by the seat entry
+        return FR.synthetic_frames(GH, W, 1, tick, dev)[0]
+
+    def typed(f, y0, x0, v):
+        f = f.clone()
+        f[y0:y0 + 16, x0:x0 + 120] = v
+        return f
+    t1 = base.clone()
+    t1[1] = typed(base[1], 300, 300, 20)
+    t1[2] = pattern(500)
+    t1[3] = torch.roll(base[3], 24, 0)
+    t2 = t1.clone()
+    t2[1] = typed(t1[1], 700, 900, 220)
+    t2[2] = pattern(507)
+    t2[3] = torch.roll(t1[3], 7, 0)
+    t8 = t2.clone()
+    t8[0] = typed(t2[0], 200, 200, 120)
+    t8[1] = typed(t2[1], 100, 100, 90)
+    t8[3] = typed(t2[3], 900, 1200, 60)
+    t8[NOISY_SEAT] = seat_noise(dev, GH, W)
+    t9 = t8.clone()
+    t9[NOISY_SEAT] = pattern(600)
+    t10 = t9.clone()
+    t10[0] = typed(t9[0], 500, 1500, 40)
+    return [("first", base, True), ("differ", t1, False),
+            ("differ2", t2, False), ("idle", t2, False),
+            ("paint01", t2, False), ("idle2", t2, False),
+            ("paint23", t2, False), ("forced", t2, True),
+            ("overflow", t8, False), ("recovery", t9, False),
+            ("grown", t10, False)]
+
+
+def seat_tick(enc, mode: str, frames, force: bool):
+    """One tick: encode (H.264: ``force`` forces the IDR batch) and
+    finalize (JPEG: ``force`` resends every stripe). -> (chunks[seat],
+    the dispatched slot)."""
+    out = enc.encode(frames, force=force) if mode == "h264" \
+        else enc.encode(frames)
+    return enc.finalize(out, force_all=force), out
+
+
+def run_seat_script(enc, mode: str, script) -> list:
+    """-> [(chunks as tuples per seat, state as numpy, intra)]."""
+    log = []
+    for _, frames, force in script:
+        per, out = seat_tick(enc, mode, frames, force)
+        log.append(([[dataclasses.astuple(c) for c in s] for s in per],
+                    port_state.session_state_to_numpy(enc),
+                    out.get("intra")))
+    return log
+
+
+def compare_seat_logs(mode: str, script, a, b) -> None:
+    check(len(a) == len(b), f"seats {mode}: runs differ in length")
+    for (name, _, _), (ca, sa, ia), (cb, sb, ib) in zip(script, a, b):
+        check(ca == cb and ia == ib,
+              f"seats {mode}: tick {name} chunks differ from plain")
+        for k in sa:
+            check(np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])),
+                  f"seats {mode}: tick {name} state {k} differs from plain")
+
+
+def check_seat_log(mode: str, script, log, enc) -> dict:
+    """The script did what it says: -> chunks per seat per tick."""
+    sent = {name: [len(c) for c in per]
+            for (name, _, _), (per, _, _) in zip(script, log)}
+    n = enc.grid.n_stripes
+    check(sent["first"] == [n] * SEATS and sent["forced"] == [n] * SEATS,
+          f"seats {mode}: a first or forced tick missed stripes {sent}")
+    d = sent["differ"]
+    check(d[0] == 0 and 0 < d[1] < n and d[2] == n and d[3] > 0,
+          f"seats {mode}: the differing seats sent {d}")
+    check(sent["idle"] == [0] * SEATS, f"seats {mode}: idle tick {sent}")
+    check(sent["paint01"][0] == n and sent["paint23"][2] == n,
+          f"seats {mode}: paint-over ticks {sent}")
+    ov = sent["overflow"]
+    check(ov[NOISY_SEAT] == 0 and all(ov[k] for k in range(SEATS)
+                                      if k != NOISY_SEAT),
+          f"seats {mode}: the overflow tick sent {ov}")
+    check(enc._cap_gen == 1, f"seats {mode}: {enc._cap_gen} growths")
+    rec = sent["recovery"]
+    if mode == "h264":
+        intra = [i for _, _, i in log]
+        check(intra == [True] + [False] * 6 + [True, False, True, False],
+              f"seats h264: I/P ticks {intra}")
+        check(rec == [n] * SEATS, f"seats h264: recovery IDR batch {rec}")
+    else:
+        check(rec[NOISY_SEAT] == n, f"seats jpeg: recovery resend {rec}")
+    return sent
+
+
+def single_seat_gate(mode: str, script, log) -> None:
+    """Each seat's chunks equal a single-seat port session fed that
+    seat's frames (H.264: the stock configuration, which the seats run,
+    forced into the seats' IDR batches), tick by tick; on the overflow
+    tick the seats that did not overflow deliver exactly what their own
+    sessions deliver."""
+    for k in range(SEATS):
+        if mode == "h264":
+            sess = H264EncoderSession(seat_settings(
+                mode, h264_partial_encode=False))
+        else:
+            sess = JpegEncoderSession(seat_settings(mode))
+        for (name, frames, force), (per, _, intra) in zip(script, log):
+            out = sess.encode(frames[k], force=bool(intra)) \
+                if mode == "h264" else sess.encode(frames[k])
+            got = [dataclasses.astuple(dataclasses.replace(
+                c, seat_index=k, display_id=f"seat{k}"))
+                for c in sess.finalize(out, force_all=force)]
+            check(got == per[k], f"seats {mode}: seat {k} tick {name} "
+                  "differs from its single-seat session")
+
+
+def seats_capture_run(mode: str, depth: int) -> dict:
+    """``MultiSeatCapture(SEATS)`` unpaced until CAPTURE_FRAMES ticks
+    were delivered, in order, every tick to every seat; the record of
+    :func:`traced_capture`."""
+    what = f"seats {mode} capture (depth {depth})"
+    run = traced_capture(MultiSeatCapture(SEATS), seat_settings(
+        mode, target_fps=1000.0, pipeline_depth=depth), what)
+    order, chunks = run["order"], run["chunks"]
+    check(order == sorted(order) and order[0] == 0,
+          f"{what}: ticks out of order")
+    check(all({c[7] for c in chunks[f]} == set(range(SEATS))
+              for f in range(CAPTURE_FRAMES)), f"{what}: a tick missed a "
+          "seat")
+    return run
+
+
+def seats_capture(modes=("jpeg", "h264")) -> dict:
+    """Depth 1 and 2, unpaced, each codec; depth 2 equal to depth 1. ->
+    {mode: {run: stats}}."""
+    stats = {}
+    for mode in modes:
+        runs = {f"depth{d}": seats_capture_run(mode, d) for d in (1, 2)}
+        for fid in range(CAPTURE_FRAMES):
+            check(runs["depth2"]["chunks"].get(fid)
+                  == runs["depth1"]["chunks"].get(fid),
+                  f"seats {mode} capture: tick {fid} at depth 2 differs "
+                  "from depth 1")
+        stats[mode] = {}
+        for name, run in runs.items():
+            st = capture_stats(run)
+            st["ticks_per_s"] = st.pop("fps")
+            st["seat_frames_per_s"] = st["ticks_per_s"]
+            st["frames_per_s_all_seats"] = SEATS * st["ticks_per_s"]
+            stats[mode][name] = st
+    return stats
+
+
+def seats_path() -> dict:
+    """The sixth path: both multi-seat encoders through the script on the
+    kernels (launch counters reset first), then the capture facade at
+    depth 1 and 2; afterwards, uncounted, the same script on the plain
+    versions and through one single-seat session per seat."""
+    res = {"sent": {}, "capture": None}
+    encs, scripts, logs = {}, {}, {}
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    for mode in ("h264", "jpeg"):
+        encs[mode] = seat_encoder(mode, SEATS)
+        g = encs[mode].grid
+        scripts[mode] = seat_script(encs[mode].device, g.height, g.width)
+        logs[mode] = run_seat_script(encs[mode], mode, scripts[mode])
+    res["capture"] = seats_capture()
+    torch.cuda.synchronize()
+    res["launches"] = dict(_cuda.LAUNCHES)
+    res["seconds"] = time.perf_counter() - t0
+    for k in SEATS_PATH:
+        check(res["launches"][k] > 0, f"seats path never launched {k}")
+    for k in ("pack_stream", "jpeg_pack", "synthetic_frame"):
+        check(res["launches"][k] == 0,
+              f"seats path launched the single-frame entry {k}")
+    for mode in ("h264", "jpeg"):
+        script, log = scripts[mode], logs[mode]
+        res["sent"][mode] = check_seat_log(mode, script, log, encs[mode])
+        compare_seat_logs(mode, script, log, run_seat_script(
+            seat_encoder(mode, SEATS, plain=True), mode, script))
+        single_seat_gate(mode, script, log)
+    return res
+
+
+def seat_launch_counts() -> dict:
+    """Launches of each kernel in one tick at every seat count: the
+    tick's frames from K10's seat entry, then a first (I) tick and a
+    full-damage (P) tick; each kernel of the tick must launch exactly
+    once, whatever the seat count. -> {S: {tick: launches}}."""
+    want = {"jpeg": {"first": SEATS_JPEG_TICK, "full": SEATS_JPEG_TICK},
+            "h264": {"first": SEATS_H264_I, "full": SEATS_H264_P}}
+    res = {}
+    for n in SEAT_COUNTS:
+        res[n] = {}
+        for mode in ("jpeg", "h264"):
+            enc = seat_encoder(mode, n)
+            for tick, (name, force) in enumerate((("first", True),
+                                                  ("full", False))):
+                torch.cuda.synchronize()
+                _cuda.reset_launches()
+                frames = synthetic_seat_frames(enc, tick)
+                per, _ = seat_tick(enc, mode, frames, force)
+                torch.cuda.synchronize()
+                got = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+                res[n][f"{mode}_{name}"] = got
+                expect = dict.fromkeys(want[mode][name]
+                                       + ("synthetic_frames",), 1)
+                check(got == expect, f"seats {mode} {name} tick at {n} "
+                      f"seats launched {got}, expected once each")
+                check(all(len(c) == enc.grid.n_stripes for c in per),
+                      f"seats {mode} {name} tick at {n} seats: a seat "
+                      "missed stripes")
+    return res
+
+
+def seat_tick_times(reps: int = 7) -> dict:
+    """Host-clock encode + finalize (ms, median of ``reps``) of a
+    full-damage tick at every seat count: H.264 the IDR batch and a P
+    tick, JPEG a tick; consecutive reps alternate between two seat
+    frame batches, so every stripe of every seat changes."""
+    res = {}
+    for n in SEAT_COUNTS:
+        res[n] = {}
+        for mode, kinds in (("h264", (("I", True), ("P", False))),
+                            ("jpeg", (("full", False),))):
+            enc = seat_encoder(mode, n)
+            batches = [synthetic_seat_frames(enc, t) for t in (0, 1)]
+            seat_tick(enc, mode, batches[1], True)
+            tick = 0
+            for kind, force in kinds:
+                ts, nbytes_ = [], 0
+                for _ in range(reps):
+                    frames = batches[tick % 2]
+                    tick += 1
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    per, _ = seat_tick(enc, mode, frames, force)
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                    nbytes_ = sum(len(c.payload) for s in per for c in s)
+                    check(all(len(c) == enc.grid.n_stripes for c in per),
+                          f"seats {mode} timing: a tick was not full")
+                check(enc._cap_gen == 0, f"seats {mode} timing overflowed")
+                res[n][f"{mode}_{kind}"] = {
+                    "encode_finalize_ms": statistics.median(ts),
+                    "bytes": nbytes_}
+    return res
+
+
+def seat_kernel_checks(dev, h264_caps, jpeg_caps) -> dict:
+    """K4, K9 and K10's seat entries against their plain versions
+    (tolerance 0) at every seat count, at the seats path's 1080p shapes
+    (K4 on K1-K3's I events, K9 on K6-K8's events of the stacked seat
+    frames), at the stock caps and with seat 0 a noise frame that
+    overflows (K4: its rows spill past a cut w_cap; K9: its byte buffer)
+    while the other seats do not; then timed (median of 20 after an L2
+    flush) beside the plain version and the bytes bound. -> {entry: {S:
+    record}}."""
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = (lambda: flush_l2(l2))
+    out = {"synthetic_frames": {}, "pack_stream_seats": {},
+           "jpeg_pack_seats": {}}
+    GH, W = (HEIGHT + 63) // 64 * 64, WIDTH
+    e_cap, w_cap, out_cap = h264_caps
+    je_cap, jw_cap, jout_cap = jpeg_caps
+    for n in SEAT_COUNTS:
+        # K10: n seats in one launch
+        ko = FR.synthetic_frames(GH, W, n, 7, dev)
+        err = max_abs_err([ko], [FR.synthetic_frames_plain(GH, W, n, 7,
+                                                           dev)])
+        wrap = FR.synthetic_frames(GH, W, n, 2**31 - 40, dev)
+        err = max(err, max_abs_err([wrap], [FR.synthetic_frames_plain(
+            GH, W, n, 2**31 - 40, dev)]))
+        check(err == 0, f"synthetic_frames ({n} seats) differs (err {err})")
+        ms = time_fn(lambda: FR.synthetic_frames(GH, W, n, 7, dev), 20,
+                     flush=flush, hide_launch=True)
+        pms = time_fn(lambda: FR.synthetic_frames_plain(GH, W, n, 7, dev), 3)
+        out["synthetic_frames"][n] = (err, ms, pms, nbytes(ko),
+                                      12 * ko.numel(), None)
+
+        frames = FR.synthetic_frames(GH, W, n, 3, dev)
+        noisy = frames.clone()
+        noisy[0] = seat_noise(dev, GH, W)
+        # K4 on the I events of the stacked frames (K1, K2-I, K3)
+        enc = seat_encoder("h264", n)
+        g = enc.grid
+        S, rps, R = n * g.n_stripes, g.rows_per_stripe, n * g.height // 16
+        qp = torch.full((R,), enc.qp, dtype=torch.int32, device=dev)
+        row_id = torch.arange(R, dtype=torch.int32, device=dev) % 16
+        send = torch.ones((S,), dtype=torch.int32, device=dev)
+        for tag, fr in (("stock", frames), ("overflow", noisy)):
+            flat = fr.view(-1, W, 3)
+            y, u, v, _ = HP.csc420_damage(flat, torch.zeros_like(flat), S)
+            ref = [torch.empty_like(p) for p in (y, u, v)]
+            lv, cbp, hp, hn = HP.mb_encode_i(y, u, v, qp, send, rps, *ref)
+            ev = HP.cavlc_events(lv, cbp, True)
+            caps = (e_cap, w_cap, out_cap) if tag == "stock" \
+                else (e_cap, 4096, out_cap)
+            args = (hp, hn, *ev, enc._hdr_pay, enc._hdr_nb, row_id, qp,
+                    True, *caps)
+            k4 = HP.pack_stream_seats(*args, n_seats=n)
+            err = max_abs_err(k4, HP.pack_stream_seats_plain(*args,
+                                                             n_seats=n))
+            check(err == 0, f"pack_stream_seats ({tag}, {n} seats) "
+                  f"differs from plain (err {err})")
+            flags = k4.flags.tolist()
+            if tag == "overflow":
+                check(flags == [[1, 1]] + [[0, 0]] * (n - 1),
+                      f"pack_stream_seats overflow flags {flags}")
+                continue
+            check(not any(f for fl in flags for f in fl),
+                  f"pack_stream_seats stock flags {flags}")
+            ms = time_fn(lambda: HP.pack_stream_seats(*args, n_seats=n), 20,
+                         flush=flush, hide_launch=True)
+            pms = time_fn(lambda: HP.pack_stream_seats_plain(
+                *args, n_seats=n), 3)
+            out["pack_stream_seats"][n] = (err, ms, pms,
+                                           nbytes(hp, hn, *ev, *k4),
+                                           10 * ev[1].numel(), None)
+
+        # K9 on the events of the stacked frames (K6-K8)
+        jenc = seat_encoder("jpeg", n)
+        jg = jenc.grid
+        S = n * jg.n_stripes
+        for tag, fr in (("stock", frames), ("overflow", noisy)):
+            flat = fr.view(-1, W, 3)
+            tab = torch.zeros((S,), dtype=torch.int32, device=dev)
+            planes = JPL.jpeg_forward(flat, torch.zeros_like(flat), tab,
+                                      jenc._qtab, jenc.subsampling)
+            k8 = JE.jpeg_events(*planes, jenc._scan, S)
+            caps = (je_cap, jw_cap, jout_cap)
+            k9 = JPP.jpeg_pack_seats(*k8, *caps, n_seats=n)
+            err = max_abs_err(k9, JPP.jpeg_pack_seats_plain(*k8, *caps,
+                                                            n_seats=n))
+            check(err == 0, f"jpeg_pack_seats ({tag}, {n} seats) differs "
+                  f"from plain (err {err})")
+            flags = k9.flags.tolist()
+            if tag == "overflow":
+                check(flags == [[0, 1]] + [[0, 0]] * (n - 1),
+                      f"jpeg_pack_seats overflow flags {flags}")
+                continue
+            check(not any(f for fl in flags for f in fl),
+                  f"jpeg_pack_seats stock flags {flags}")
+            ms = time_fn(lambda: JPP.jpeg_pack_seats(*k8, *caps, n_seats=n),
+                         20, flush=flush, hide_launch=True)
+            pms = time_fn(lambda: JPP.jpeg_pack_seats_plain(
+                *k8, *caps, n_seats=n), 3)
+            out["jpeg_pack_seats"][n] = (err, ms, pms, nbytes(*k8, *k9),
+                                         10 * k8[0].numel(), None)
+    return out
+
+
 def run_path(name: str, path: tuple, run) -> tuple:
     """Counters to 0, ``run()``, counters read: every kernel of ``path``
     must have launched. -> (run's result, launches)."""
@@ -1473,6 +1909,32 @@ def main() -> int:
         print(f"capture loop h264_444 {name} ({WIDTH}x{HEIGHT}, host "
               f"clock): " + json.dumps(st))
 
+    # 6. seats: both multi-seat encoders, 4 seats, and their capture loop
+    seats = seats_path()
+    print(f"seats sequence: {SEATS} seats, {len(seats['sent']['h264'])} "
+          f"ticks a codec and the capture loop at depth 1 and 2 in "
+          f"{seats['seconds']:.2f} s; launches "
+          f"{json.dumps(seats['launches'])}")
+    for mode, sent in seats["sent"].items():
+        print(f"seats {mode}: kernel path == plain path (chunks and state), "
+              "each seat == its single-seat session, and on the overflow "
+              f"tick seats other than {NOISY_SEAT} equal their own "
+              f"sessions; stripes sent per seat: {json.dumps(sent)}")
+    for mode, runs in seats["capture"].items():
+        for name, st in runs.items():
+            print(f"seats capture loop {mode} {name} ({SEATS} seats of "
+                  f"{WIDTH}x{HEIGHT}, host clock): " + json.dumps(st))
+    print("seats capture: depth 2 == depth 1, chunk for chunk, ticks "
+          f"0..{CAPTURE_FRAMES - 1}, both codecs")
+    seat_counts = seat_launch_counts()
+    for n, ticks in seat_counts.items():
+        print(f"seats launches per tick at {n} seats: "
+              + json.dumps(ticks))
+    seat_times = seat_tick_times()
+    for n, kinds in seat_times.items():
+        print(f"seats full-damage tick at {n} seats (encode + finalize, "
+              f"ms, host clock, median of 7): " + json.dumps(kinds))
+
     # the overflow episodes grew the buffers: the kernels are checked and
     # timed at the stock caps
     stock = H264EncoderSession(settings)
@@ -1489,6 +1951,14 @@ def main() -> int:
     k4_444 = {k: recs444.pop(k) for k in ("pack_stream444_i",
                                           "pack_stream444_p")}
     recs.update(recs444)
+    srecs = seat_kernel_checks(stock.device, h264_buffer_caps(g),
+                               jpeg_buffer_caps(jg, False))
+    for name, per_n in srecs.items():
+        for n, (err, ms, pms, by, ops, _) in per_n.items():
+            t_b = max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+            print(f"  {name} at {n} seats: {ms:.4f} ms (plain {pms:.2f} "
+                  f"ms, bound {t_b:.4f} ms)")
+        recs[name] = per_n[SEATS]
     f2, f3 = (torch.as_tensor(f).cuda() for f in frames[2:4])
     times = frame_times(settings, {"I": (f3, f2, True),
                                    "P": (f3, f2, False)})
@@ -1548,8 +2018,9 @@ def main() -> int:
     # library_ms: K6's one-expression torch counterpart and F.pad for
     # K11; null elsewhere, since no single PyTorch call does CSC +
     # subsampling + damage (K1), the H.264 transforms, CAVLC or bit
-    # packing (K2-K5, K14-K16), CSC + DCT + quantisation + zigzag (K7),
-    # Huffman events (K8), bit packing (K9), the synthetic pattern (K10),
+    # packing (K2-K5, K14-K16, K4's seat entry), CSC + DCT + quantisation
+    # + zigzag (K7), Huffman events (K8), bit packing (K9 and its seat
+    # entry), the synthetic pattern (K10 and its seat entry),
     # a blend rounded half to even, clipped and written back (K12) or
     # CSC rounded to three planes + damage (K13)
     rows = []
@@ -1561,6 +2032,7 @@ def main() -> int:
         n += jpeg_launches[name] if name in JPEG_PATH else 0
         n += capture_launches[name]
         n += fc_launches[name]
+        n += seats["launches"][name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,

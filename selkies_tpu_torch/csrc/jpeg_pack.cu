@@ -20,6 +20,14 @@
 // reference's scatter-add) into the <= 2 words it overlaps; words past
 // w_cap are dropped, not wrapped. (4) The byte buffer of
 // stripe_bytes.cuh, each stripe's last byte padded with ones.
+//
+// Seats: jpeg_pack_seats replaces the same functions vmapped over the seat
+// axis by selkies_tpu/parallel/seats.py:MultiSeatEncoder._build_step
+// (:93). The stripes of S seats lie back to back, so grids (1)-(3) run
+// over all S * n stripes unchanged (a stripe's words never pass its own
+// w_cap); each seat has its own flags pair and (out_cap,) byte buffer,
+// and grid (4) takes the seat from blockIdx.y. jpeg_pack is the S = 1
+// case.
 #include "h264_common.cuh"
 #include "stripe_bytes.cuh"
 
@@ -46,7 +54,7 @@ __global__ void jpeg_block_bits_kernel(const uint8_t* __restrict__ nbits,
 // exclusive scan of one stripe's M block sums (1024 threads)
 __global__ void jpeg_stripe_scan_kernel(const int* __restrict__ bits,
                                         const int* __restrict__ events, int M,
-                                        int e_cap, int w_cap,
+                                        int per_seat, int e_cap, int w_cap,
                                         int* __restrict__ start,
                                         int* __restrict__ total_bits,
                                         int* __restrict__ n_events,
@@ -97,7 +105,7 @@ __global__ void jpeg_stripe_scan_kernel(const int* __restrict__ bits,
     total_bits[s] = carry;
     n_events[s] = n;
     if (n > e_cap || static_cast<long long>(carry) > 32LL * w_cap)
-      atomicOr(&flags[0], 1);
+      atomicOr(&flags[2 * (s / per_seat)], 1);
   }
 }
 
@@ -138,30 +146,47 @@ __global__ void jpeg_place_kernel(const int* __restrict__ payload,
   }
 }
 
-extern "C" int jpeg_pack(const int* payload, const uint8_t* nbits, int S,
-                         int M, int e_cap, int w_cap, int out_cap,
-                         int* scratch, int* words, int* total_bits,
-                         int* n_events, uint8_t* data, int* byte_lens,
-                         int* flags, void* stream) {
+// n_seats seats of S / n_seats stripes each: words (S, w_cap), total_bits,
+// n_events and byte_lens (S,), data (n_seats, out_cap), flags (n_seats, 2)
+extern "C" int jpeg_pack_seats(const int* payload, const uint8_t* nbits,
+                               int n_seats, int S, int M, int e_cap,
+                               int w_cap, int out_cap, int* scratch,
+                               int* words, int* total_bits, int* n_events,
+                               uint8_t* data, int* byte_lens, int* flags,
+                               void* stream) {
+  if (n_seats <= 0 || n_seats > 65535 || S % n_seats)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int per_seat = S / n_seats;
   const long long total = static_cast<long long>(S) * M;
   int* bits = scratch;
   int* events = scratch + total;
   int* start = scratch + 2 * total;
   cudaMemsetAsync(words, 0, sizeof(int) * static_cast<size_t>(S) * w_cap, st);
-  cudaMemsetAsync(flags, 0, 2 * sizeof(int), st);
+  cudaMemsetAsync(flags, 0, 2 * sizeof(int) * static_cast<size_t>(n_seats),
+                  st);
   const int threads = 256, warps = threads / 32;
   const int grid = static_cast<int>((total + warps - 1) / warps);
   jpeg_block_bits_kernel<<<grid, threads, 0, st>>>(nbits, total, bits,
                                                    events);
-  jpeg_stripe_scan_kernel<<<S, 1024, 0, st>>>(bits, events, M, e_cap, w_cap,
-                                              start, total_bits, n_events,
-                                              flags);
+  jpeg_stripe_scan_kernel<<<S, 1024, 0, st>>>(bits, events, M, per_seat,
+                                              e_cap, w_cap, start, total_bits,
+                                              n_events, flags);
   jpeg_place_kernel<<<grid, threads, 0, st>>>(
       payload, nbits, start, M, total, w_cap,
       reinterpret_cast<unsigned*>(words));
   launch_concat_bytes<true>(reinterpret_cast<const unsigned*>(words),
-                            total_bits, S, w_cap, out_cap, data, byte_lens,
-                            flags, st);
+                            total_bits, n_seats, per_seat, w_cap, out_cap,
+                            data, byte_lens, flags, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int jpeg_pack(const int* payload, const uint8_t* nbits, int S,
+                         int M, int e_cap, int w_cap, int out_cap,
+                         int* scratch, int* words, int* total_bits,
+                         int* n_events, uint8_t* data, int* byte_lens,
+                         int* flags, void* stream) {
+  return jpeg_pack_seats(payload, nbits, 1, S, M, e_cap, w_cap, out_cap,
+                         scratch, words, total_bits, n_events, data,
+                         byte_lens, flags, stream);
 }

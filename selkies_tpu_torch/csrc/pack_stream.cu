@@ -17,6 +17,15 @@
 // and where an overflowing row spills into the next row's words the sum
 // is what the reference's scatter-add computes. (2) The byte buffer of
 // stripe_bytes.cuh (zero-padded rows; 68 rows at 1080p).
+//
+// Seats: pack_stream_seats replaces the same functions vmapped over the
+// seat axis by selkies_tpu/parallel/h264_seats.py:MultiSeatH264Encoder.
+// _build (:98). The rows of S seats lie back to back (S * R blocks, one
+// launch a tick); every bound is the seat's own, as under vmap: a row's
+// words may spill into the next row's only up to the seat's R * w_cap
+// words (seat k's last row never reaches seat k + 1's first), and each
+// seat has its own flags pair and (out_cap,) byte buffer. pack_stream is
+// the S = 1 case.
 #include "h264_common.cuh"
 #include "stripe_bytes.cuh"
 
@@ -54,6 +63,10 @@ __global__ void pack_rows_kernel(const int* __restrict__ hdr_pay,
                                  int R, int M, int e_cap, int w_cap,
                                  unsigned* words, int* __restrict__ total_bits,
                                  int* __restrict__ flags) {
+  // blockIdx.x runs over every seat's rows; R rows a seat
+  const int seat = blockIdx.x / R;
+  words += static_cast<long long>(seat) * R * w_cap;
+  flags += 2 * seat;
   extern __shared__ int sm[];
   int* mb_bits = sm;              // M
   int* mb_start = sm + M;         // M
@@ -135,8 +148,8 @@ __global__ void pack_rows_kernel(const int* __restrict__ hdr_pay,
   }
   __syncthreads();
 
-  // ---- place the events
-  const long long row_base = static_cast<long long>(r) * w_cap * 32;
+  // ---- place the events (offsets inside the seat's words)
+  const long long row_base = static_cast<long long>(r - seat * R) * w_cap * 32;
   const long long n_words = static_cast<long long>(R) * w_cap;
   if (threadIdx.x < 6)
     put_event(words, n_words, row_base + ctx.pre_off[threadIdx.x],
@@ -171,6 +184,33 @@ __global__ void pack_rows_kernel(const int* __restrict__ hdr_pay,
   }
 }
 
+// S seats of R rows each: words (S * R, w_cap), total_bits and byte_lens
+// (S * R,), data (S, out_cap), flags (S, 2); every per-row input is
+// (S * R, ...) with the seats back to back
+extern "C" int pack_stream_seats(const int* hdr_pay, const int* hdr_nb,
+                                 const int* ev_pay, const uint8_t* ev_nb,
+                                 int SB, const int* row_hdr_pay,
+                                 const int* row_hdr_nb, const int* row_id,
+                                 const int* qp, int intra, int S, int R,
+                                 int M, int e_cap, int w_cap, int out_cap,
+                                 int* words, int* total_bits, uint8_t* data,
+                                 int* byte_lens, int* flags, void* stream) {
+  if (S <= 0 || S > 65535 || R <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaMemsetAsync(words, 0,
+                  sizeof(int) * static_cast<size_t>(S) * R * w_cap, s);
+  cudaMemsetAsync(flags, 0, 2 * sizeof(int) * static_cast<size_t>(S), s);
+  pack_rows_kernel<<<S * R, 256, 4 * M * sizeof(int), s>>>(
+      hdr_pay, hdr_nb, ev_pay, ev_nb, SB, row_hdr_pay, row_hdr_nb, row_id, qp,
+      intra, R, M, e_cap, w_cap, reinterpret_cast<unsigned*>(words),
+      total_bits, flags);
+  launch_concat_bytes<false>(reinterpret_cast<const unsigned*>(words),
+                             total_bits, S, R, w_cap, out_cap, data,
+                             byte_lens, flags, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int pack_stream(const int* hdr_pay, const int* hdr_nb,
                            const int* ev_pay, const uint8_t* ev_nb, int SB,
                            const int* row_hdr_pay, const int* row_hdr_nb,
@@ -178,15 +218,8 @@ extern "C" int pack_stream(const int* hdr_pay, const int* hdr_nb,
                            int M, int e_cap, int w_cap, int out_cap,
                            int* words, int* total_bits, uint8_t* data,
                            int* byte_lens, int* flags, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(words, 0, sizeof(int) * static_cast<size_t>(R) * w_cap, s);
-  cudaMemsetAsync(flags, 0, 2 * sizeof(int), s);
-  pack_rows_kernel<<<R, 256, 4 * M * sizeof(int), s>>>(
-      hdr_pay, hdr_nb, ev_pay, ev_nb, SB, row_hdr_pay, row_hdr_nb, row_id, qp,
-      intra, R, M, e_cap, w_cap, reinterpret_cast<unsigned*>(words),
-      total_bits, flags);
-  launch_concat_bytes<false>(reinterpret_cast<const unsigned*>(words),
-                             total_bits, R, w_cap, out_cap, data, byte_lens,
-                             flags, s);
-  return static_cast<int>(cudaGetLastError());
+  return pack_stream_seats(hdr_pay, hdr_nb, ev_pay, ev_nb, SB, row_hdr_pay,
+                           row_hdr_nb, row_id, qp, intra, 1, R, M, e_cap,
+                           w_cap, out_cap, words, total_bits, data,
+                           byte_lens, flags, stream);
 }

@@ -11,6 +11,11 @@
 // row's 4 * w_cap bytes as the reference does, and splits the word
 // big-endian; bytes past the total are zero. A row longer than its words
 // has no last byte there to pad.
+//
+// Seats (selkies_tpu/parallel/: the step vmapped over a leading seat
+// axis): the rows of S seats lie back to back, R per seat, and each seat
+// has its own (out_cap,) buffer, byte lengths and flags pair; blockIdx.y
+// is the seat. One seat is the S = 1 case.
 #pragma once
 #include "h264_common.cuh"
 
@@ -22,6 +27,12 @@ __global__ void concat_bytes_kernel(const unsigned* __restrict__ words,
                                     int* __restrict__ byte_lens,
                                     int* __restrict__ flags) {
   extern __shared__ long long starts[];   // R + 1 (last: the total)
+  const int seat = blockIdx.y;
+  words += static_cast<long long>(seat) * R * w_cap;
+  total_bits += static_cast<long long>(seat) * R;
+  data += static_cast<long long>(seat) * out_cap;
+  byte_lens += static_cast<long long>(seat) * R;
+  flags += 2 * seat;
   if (threadIdx.x == 0) {
     long long acc = 0;
     for (int k = 0; k < R; k++) {
@@ -61,13 +72,15 @@ __global__ void concat_bytes_kernel(const unsigned* __restrict__ words,
   data[j] = out;
 }
 
-// launch on stream s after the words are complete
+// launch on stream s after the words are complete; R rows per seat
 template <bool PAD_ONES>
 inline void launch_concat_bytes(const unsigned* words, const int* total_bits,
-                                int R, int w_cap, int out_cap, uint8_t* data,
-                                int* byte_lens, int* flags, cudaStream_t s) {
+                                int S, int R, int w_cap, int out_cap,
+                                uint8_t* data, int* byte_lens, int* flags,
+                                cudaStream_t s) {
   const int threads = 256;
-  concat_bytes_kernel<PAD_ONES><<<(out_cap + threads - 1) / threads, threads,
+  const dim3 grid((out_cap + threads - 1) / threads, S);
+  concat_bytes_kernel<PAD_ONES><<<grid, threads,
                                   (R + 1) * sizeof(long long), s>>>(
       words, total_bits, R, w_cap, out_cap, data, byte_lens, flags);
 }

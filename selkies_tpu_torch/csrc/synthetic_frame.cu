@@ -11,9 +11,17 @@
 // is jnp's floor modulo, so a product that wraps negative reduces into
 // [0, m) as the reference reduces it.
 //
-// Bound on the H100: bytes (6.22 MB written at 1920x1080, nothing read).
-// Design: one thread per 4 output bytes, a 32-bit store where the buffer
-// is 4-byte aligned (byte stores at a ragged tail or an unaligned buffer).
+// The seat entry, synthetic_frames, replaces
+// selkies_tpu/parallel/seats.py:synthetic_seat_frames (:267): the same
+// pattern vmapped over seats, seat k at the int32 phase k * 37 + tick
+// (numpy's int32 arithmetic, which wraps). One launch writes the
+// (S, H, W, 3) batch: blockIdx.y is the seat; the single-frame entry is
+// its S = 1 case.
+//
+// Bound on the H100: bytes (6.22 MB written a 1920x1080 frame, nothing
+// read). Design: one thread per 4 output bytes, a 32-bit store where the
+// seat's frame is 4-byte aligned (byte stores at a ragged tail or an
+// unaligned frame).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,9 +36,14 @@ __device__ __forceinline__ int wrap_mul(int a, unsigned k) {
   return static_cast<int>(static_cast<unsigned>(a) * k);
 }
 
-__global__ void synthetic_frame_kernel(uint8_t* __restrict__ out, int H,
-                                       int W, int tick, int vec) {
+__global__ void synthetic_frame_kernel(uint8_t* __restrict__ out_all, int H,
+                                       int W, int tick0) {
   const long long n = 3LL * H * W;
+  uint8_t* out = out_all + n * blockIdx.y;
+  // the seat's phase, seat * 37 + tick wrapped as int32
+  const int tick = static_cast<int>(blockIdx.y * 37u +
+                                    static_cast<unsigned>(tick0));
+  const int vec = (reinterpret_cast<uintptr_t>(out) & 3) == 0;
   const long long i0 =
       4LL * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
   if (i0 >= n) return;
@@ -75,14 +88,20 @@ __global__ void synthetic_frame_kernel(uint8_t* __restrict__ out, int H,
   }
 }
 
-extern "C" int synthetic_frame(uint8_t* out, int H, int W, int tick,
-                               void* stream) {
-  if (H <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// S frames, seat k's at tick k * 37 + tick, into out (S, H, W, 3)
+extern "C" int synthetic_frames(uint8_t* out, int S, int H, int W, int tick,
+                                void* stream) {
+  if (S <= 0 || S > 65535 || H <= 0 || W <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long groups = (3LL * H * W + 3) / 4;
   const int threads = 256;
-  const int blocks = static_cast<int>((groups + threads - 1) / threads);
-  const int vec = (reinterpret_cast<uintptr_t>(out) & 3) == 0;
-  synthetic_frame_kernel<<<blocks, threads, 0, s>>>(out, H, W, tick, vec);
+  const dim3 grid(static_cast<unsigned>((groups + threads - 1) / threads), S);
+  synthetic_frame_kernel<<<grid, threads, 0, s>>>(out, H, W, tick);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int synthetic_frame(uint8_t* out, int H, int W, int tick,
+                               void* stream) {
+  return synthetic_frames(out, 1, H, W, tick, stream);
 }

@@ -132,7 +132,7 @@ class ScreenCapture:
             self._settings = settings
             if settings.output_mode == "h264":
                 # stripe_devices > 1 (split-frame over several devices)
-                # raises in the session: not ported yet (ROADMAP A11)
+                # raises in the session: not ported yet (ROADMAP A11b)
                 from .h264_encoder import H264EncoderSession
                 self._session = H264EncoderSession(settings, self.device)
             else:

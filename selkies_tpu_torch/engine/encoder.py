@@ -98,7 +98,9 @@ def build_step_fn(width: int, stripe_h: int, n_stripes: int, subsampling: str,
     -> (data u8 (out_cap,), byte_lens i32 (S,), send bool (S,),
         is_paint bool (S,), overflow bool ())
     ``prev`` becomes ``frame`` and ``age`` advances, in place (the
-    reference returns them as new arrays)."""
+    reference returns them as new arrays). With a seat set of ``ops``
+    (parallel/seats.py) data is (n_seats, out_cap) and overflow
+    (n_seats,)."""
     s = n_stripes
 
     def step(frame, prev, age, qtables):
@@ -117,7 +119,8 @@ def build_step_fn(width: int, stripe_h: int, n_stripes: int, subsampling: str,
                                   qtables, subsampling)
         payload, nbits = ops.jpeg_events(*planes, scan, s)
         st = ops.jpeg_pack(payload, nbits, e_cap, w_cap, out_cap)
-        return st.data, st.byte_lens, send, is_paint, st.flags.any()
+        # one overflow flag a frame; one a seat with the seat ops
+        return st.data, st.byte_lens, send, is_paint, st.flags.any(-1)
 
     step.__name__ = "jpeg_step"
     return step

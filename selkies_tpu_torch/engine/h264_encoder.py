@@ -140,7 +140,7 @@ def _check_slice(s: CaptureSettings) -> None:
     todo = [(bool(s.h264_roi_qp) and not s.fullcolor,
              "h264_roi_qp (ROI QP, ROADMAP A16)"),
             (int(s.stripe_devices) > 1,
-             "stripe_devices>1 (split-frame, ROADMAP A11)")]
+             "stripe_devices>1 (split-frame, ROADMAP A11b)")]
     for bad, what in todo:
         if bad:
             raise NotImplementedError(f"{what} is not ported yet")
@@ -163,7 +163,9 @@ def build_h264_step_fn(mode: str, width: int, stripe_h: int, n_stripes: int,
     -> (data u8 (out_cap,), row_lens i32 (R,), send (S,), is_paint (S,),
         overflow ())
     ``prev``, ``age``, ``sent``, ``fnum`` and the reference planes are
-    updated in place (the reference returns them as new arrays)."""
+    updated in place (the reference returns them as new arrays). With a
+    seat set of ``ops`` (parallel/h264_seats.py) data is (n_seats,
+    out_cap) and overflow (n_seats,)."""
     rps = stripe_h // 16
     intra = mode == "i"
     motion = not intra and len(candidates) > 1
@@ -204,7 +206,8 @@ def build_h264_step_fn(mode: str, width: int, stripe_h: int, n_stripes: int,
         ev_pay, ev_nb = ops.cavlc_events(lv, cbp, intra)
         st = ops.pack_stream(mb_pay, mb_nb, ev_pay, ev_nb, hdr_pay, hdr_nb,
                              row_id, qp_rows, intra, e_cap, w_cap, out_cap)
-        return st.data, st.byte_lens, send, is_paint, st.flags.any()
+        # one overflow flag a frame; one a seat with the seat ops
+        return st.data, st.byte_lens, send, is_paint, st.flags.any(-1)
 
     step.__name__ = f"h264_{mode}_step"
     return step

@@ -56,7 +56,9 @@ def _to_host(t: torch.Tensor, stream, after) -> np.ndarray:
     stream.wait_event(after)
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     with torch.cuda.stream(stream):
-        host.copy_(t, non_blocking=True)
+        # a prefix of a (seats, out_cap) buffer is strided: the pinned
+        # copy is made from a contiguous slice
+        host.copy_(t.contiguous(), non_blocking=True)
         t.record_stream(stream)
         done = torch.cuda.Event()
         done.record(stream)
@@ -92,12 +94,14 @@ class HostCopy:
 
 def fetch_stream_bytes(data_dev: torch.Tensor, total: int, stream,
                        after) -> np.ndarray:
-    """The first ``total`` bytes of the stream buffer, fetched as the
-    power-of-two bucket that covers them (at most the whole buffer), on
-    ``stream`` after the event ``after`` (see the module docstring)."""
+    """The first ``total`` bytes of the stream buffer (along its last
+    axis: a multi-seat buffer (seats, out_cap) gives (seats, n)), fetched
+    as the power-of-two bucket that covers them (at most the whole
+    buffer), on ``stream`` after the event ``after`` (see the module
+    docstring)."""
     _faults.registry.perturb("readback.fetch")
     if total <= 0:
-        return np.zeros((0,), np.uint8)
+        return np.zeros(tuple(data_dev.shape[:-1]) + (0,), np.uint8)
     n = int(data_dev.shape[-1])
     if data_dev.device.type == "cpu":
         return data_dev[..., :min(total, n)].numpy()

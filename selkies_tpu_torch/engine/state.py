@@ -9,7 +9,9 @@ rebuilds its steps for the buffer caps it is handed
 (``_rebuild_steps``). H.264: on the band path the host age mirror
 ``_host_age``, not the device ``_age``, is the authority between I
 frames, so it is carried too. JPEG: ``prev``, ``age``, the caps and the
-force-after-drop flag.
+force-after-drop flag. The multi-seat encoders (parallel/) carry the
+same arrays with a leading seat axis, and their force-after-drop flags
+as a (seats,) host array.
 """
 
 from __future__ import annotations
@@ -41,6 +43,11 @@ H264_STATE = StateKeys(ARRAY_KEYS, HOST_ARRAY_KEYS, SCALAR_KEYS)
 JPEG_STATE = StateKeys({"_prev": torch.uint8, "_age": torch.int32}, {},
                        ("frame_id", "_w_cap", "_out_cap", "_cap_gen",
                         "_force_after_drop"))
+_SEAT_SCALARS = ("frame_id", "_w_cap", "_out_cap", "_cap_gen")
+SEATS_JPEG_STATE = StateKeys({"_prev": torch.uint8, "_age": torch.int32},
+                             {"_force_after_drop": np.bool_}, _SEAT_SCALARS)
+SEATS_H264_STATE = StateKeys(ARRAY_KEYS, {"_force_after_drop": np.bool_},
+                             ("qp", "paint_qp") + _SEAT_SCALARS)
 
 
 def session_state_to_numpy(session) -> dict:

@@ -46,12 +46,15 @@ ENTRIES = {
     "mb_encode_p": [_P] * 16 + [_I] * 2,
     "cavlc_events": [_P] * 4 + [_I] * 3,
     "pack_stream": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6 + [_P] * 5,
+    "pack_stream_seats": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_P] * 5,
     "motion_select": [_P] * 6 + [_I] * 4 + [_P] * 4,
     "row_damage_probe": [_P] * 3 + [_I] * 2,
     "jpeg_forward": [_P] * 7 + [_I] * 4,
     "jpeg_events": [_P] * 6 + [_I] * 4,
     "jpeg_pack": [_P] * 2 + [_I] * 5 + [_P] * 7,
+    "jpeg_pack_seats": [_P] * 2 + [_I] * 6 + [_P] * 7,
     "synthetic_frame": [_P] + [_I] * 3,
+    "synthetic_frames": [_P] + [_I] * 4,
     "pad_frame": [_P] * 2 + [_I] * 4,
     "watermark_blend": [_P] * 3 + [_I] * 6,
     "csc444_damage": [_P] * 6 + [_I] * 3,

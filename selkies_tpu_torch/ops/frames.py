@@ -7,6 +7,9 @@ engine loop:
 ``synthetic_frame``    K10 (csrc/synthetic_frame.cu): the synthetic
                        desktop of a tick
                        (selkies_tpu/engine/sources.py ``_synthetic_fn``)
+``synthetic_frames``   K10's seat entry: one launch, S seats' desktops
+                       (selkies_tpu/parallel/seats.py
+                       ``synthetic_seat_frames``)
 ``pad_frame``          K11 (csrc/pad_frame.cu): a captured frame zero-
                        padded to the encode grid
                        (selkies_tpu/engine/capture.py ``_padder``)
@@ -88,6 +91,41 @@ def synthetic_frame(height: int, width: int, tick: int,
         raise ValueError(f"no kernel for device {device}")
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=device)
     _cuda.launch("synthetic_frame", out, height, width, _check_tick(tick))
+    return out
+
+
+def seat_ticks(n_seats: int, tick: int) -> list[int]:
+    """Each seat's phase, ``arange(n_seats, int32) * 37 + tick`` in
+    numpy's int32 arithmetic: a tick outside int32 raises, a sum past it
+    wraps."""
+    tick = _check_tick(tick)
+    return [_wrap32(37 * k + tick) for k in range(n_seats)]
+
+
+def synthetic_frames_plain(height: int, width: int, n_seats: int, tick: int,
+                           device="cpu") -> torch.Tensor:
+    """(n_seats, height, width, 3) uint8: seat k's frame is
+    :func:`synthetic_frame_plain` at phase ``k * 37 + tick``."""
+    return torch.stack([synthetic_frame_plain(height, width, t, device)
+                        for t in seat_ticks(n_seats, tick)])
+
+
+def synthetic_frames(height: int, width: int, n_seats: int, tick: int,
+                     device=None) -> torch.Tensor:
+    """K10's seat entry on a CUDA ``device`` (None: the card, which must
+    be there): every seat's frame in one launch; else
+    :func:`synthetic_frames_plain` on the CPU."""
+    device = resolve_device(device)
+    if height <= 0 or width <= 0 or n_seats < 1:
+        raise ValueError(f"{n_seats} frames of {width}x{height}")
+    seat_ticks(n_seats, tick)                    # the int32 checks
+    if device.type == "cpu":
+        return synthetic_frames_plain(height, width, n_seats, tick, device)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    out = torch.empty((n_seats, height, width, 3), dtype=torch.uint8,
+                      device=device)
+    _cuda.launch("synthetic_frames", out, n_seats, height, width, int(tick))
     return out
 
 

@@ -1117,6 +1117,7 @@ class StreamOut(NamedTuple):
     byte_lens: torch.Tensor   # (R,) int32
     flags: torch.Tensor       # (2,) int32: [w_cap/e_cap overflow,
     #                                         out_cap overflow]
+    # (the seat entries: data (n_seats, out_cap), flags (n_seats, 2))
 
 
 def pack_stream_plain(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay,
@@ -1138,11 +1139,9 @@ def pack_stream_plain(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay,
                      flags)
 
 
-def pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb,
-                row_id, qp, intra: bool, e_cap: int, w_cap: int,
-                out_cap: int) -> StreamOut:
-    """K4 (csrc/pack_stream.cu) for CUDA tensors, else
-    :func:`pack_stream_plain`. The block slots per MB, SB, are read off
+def _check_pack(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb,
+                row_id, qp, intra: bool) -> int:
+    """K4's input checks. -> SB, the block slots per MB, read off
     ``ev_pay``: 876 (I) / 872 (P) at 4:2:0, 1740 / 1728 at 4:4:4."""
     R, M = hdr_pay.shape[0], hdr_pay.shape[1]
     dev = hdr_pay.device
@@ -1155,20 +1154,84 @@ def pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb,
     _check(row_hdr_nb, "row_hdr_nb", torch.int32, (R, 2), dev)
     _check(row_id, "row_id", torch.int32, (R,), dev)
     _check(qp, "qp", torch.int32, (R,), dev)
+    return sb
+
+
+def _launch_pack(entry: str, n_seats, hdr_pay, hdr_nb, ev_pay, ev_nb, sb,
+                 row_hdr_pay, row_hdr_nb, row_id, qp, intra: bool,
+                 e_cap: int, w_cap: int, out_cap: int) -> StreamOut:
+    """K4's outputs and launch; ``n_seats`` None is the single-frame
+    entry (whose data and flags have no seat axis)."""
+    R, M = hdr_pay.shape[0], hdr_pay.shape[1]
+    dev = hdr_pay.device
+    seats = () if n_seats is None else (n_seats,)
+    words = torch.empty((R, w_cap), dtype=torch.int32, device=dev)
+    total_bits = torch.empty((R,), dtype=torch.int32, device=dev)
+    data = torch.empty(seats + (out_cap,), dtype=torch.uint8, device=dev)
+    byte_lens = torch.empty((R,), dtype=torch.int32, device=dev)
+    flags = torch.empty(seats + (2,), dtype=torch.int32, device=dev)
+    rows = R if n_seats is None else R // n_seats
+    _cuda.launch(entry, hdr_pay, hdr_nb, ev_pay, ev_nb, sb, row_hdr_pay,
+                 row_hdr_nb, row_id, qp, int(intra), *seats, rows, M, e_cap,
+                 w_cap, out_cap, words, total_bits, data, byte_lens, flags)
+    return StreamOut(words, total_bits, data, byte_lens, flags)
+
+
+def pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb,
+                row_id, qp, intra: bool, e_cap: int, w_cap: int,
+                out_cap: int) -> StreamOut:
+    """K4 (csrc/pack_stream.cu) for CUDA tensors, else
+    :func:`pack_stream_plain`."""
+    sb = _check_pack(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay,
+                     row_hdr_nb, row_id, qp, intra)
     if _on_cpu(hdr_pay):
         return pack_stream_plain(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay,
                                  row_hdr_nb, row_id, qp, intra, e_cap, w_cap,
                                  out_cap)
-    words = torch.empty((R, w_cap), dtype=torch.int32, device=dev)
-    total_bits = torch.empty((R,), dtype=torch.int32, device=dev)
-    data = torch.empty((out_cap,), dtype=torch.uint8, device=dev)
-    byte_lens = torch.empty((R,), dtype=torch.int32, device=dev)
-    flags = torch.empty((2,), dtype=torch.int32, device=dev)
-    _cuda.launch("pack_stream", hdr_pay, hdr_nb, ev_pay, ev_nb, sb,
-                 row_hdr_pay, row_hdr_nb, row_id, qp, int(intra), R, M,
-                 e_cap, w_cap, out_cap, words, total_bits, data, byte_lens,
-                 flags)
-    return StreamOut(words, total_bits, data, byte_lens, flags)
+    return _launch_pack("pack_stream", None, hdr_pay, hdr_nb, ev_pay, ev_nb,
+                        sb, row_hdr_pay, row_hdr_nb, row_id, qp, intra,
+                        e_cap, w_cap, out_cap)
+
+
+def pack_stream_seats_plain(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay,
+                            row_hdr_nb, row_id, qp, intra: bool, e_cap: int,
+                            w_cap: int, out_cap: int, n_seats: int
+                            ) -> StreamOut:
+    """The rows of ``n_seats`` seats, back to back, each seat packed as
+    one frame by :func:`pack_stream_plain` (the reference vmaps its
+    packer over seats). -> words, total_bits and byte_lens over all rows,
+    data (n_seats, out_cap), flags (n_seats, 2)."""
+    R = hdr_pay.shape[0] // n_seats
+    outs = [pack_stream_plain(*(t[k * R:(k + 1) * R] for t in (
+        hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb, row_id,
+        qp)), intra, e_cap, w_cap, out_cap) for k in range(n_seats)]
+    cat = torch.cat
+    return StreamOut(cat([o.words for o in outs]),
+                     cat([o.total_bits for o in outs]),
+                     torch.stack([o.data for o in outs]),
+                     cat([o.byte_lens for o in outs]),
+                     torch.stack([o.flags for o in outs]))
+
+
+def pack_stream_seats(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay,
+                      row_hdr_nb, row_id, qp, intra: bool, e_cap: int,
+                      w_cap: int, out_cap: int, n_seats: int) -> StreamOut:
+    """K4's seat entry (``pack_stream_seats`` in csrc/pack_stream.cu, one
+    launch for every seat) for CUDA tensors, else
+    :func:`pack_stream_seats_plain`. The per-row inputs hold the rows of
+    ``n_seats`` seats back to back."""
+    sb = _check_pack(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay,
+                     row_hdr_nb, row_id, qp, intra)
+    if n_seats < 1 or hdr_pay.shape[0] % n_seats:
+        raise ValueError(f"{hdr_pay.shape[0]} rows do not split into "
+                         f"{n_seats} seats")
+    if _on_cpu(hdr_pay):
+        return pack_stream_seats_plain(hdr_pay, hdr_nb, ev_pay, ev_nb,
+                                       row_hdr_pay, row_hdr_nb, row_id, qp,
+                                       intra, e_cap, w_cap, out_cap, n_seats)
+    return _launch_pack("pack_stream_seats", n_seats, hdr_pay, hdr_nb,
+                        ev_pay, ev_nb, sb, row_hdr_pay, row_hdr_nb, row_id,
+                        qp, intra, e_cap, w_cap, out_cap)
 
 
 # ---------------------------------------------------------------------------
@@ -1192,6 +1255,10 @@ KERNEL_OPS = StepOps(csc420_damage, mb_encode_i, mb_encode_p, cavlc_events,
 PLAIN_OPS = StepOps(csc420_damage_plain, mb_encode_i_plain,
                     mb_encode_p_plain, cavlc_events_plain, pack_stream_plain,
                     motion_select_plain, row_damage_probe_plain)
+#: the multi-seat step's sets (parallel/h264_seats.py): K4's seat entry,
+#: which takes ``n_seats``, in place of the single-frame one
+SEAT_KERNEL_OPS = KERNEL_OPS._replace(pack_stream=pack_stream_seats)
+SEAT_PLAIN_OPS = PLAIN_OPS._replace(pack_stream=pack_stream_seats_plain)
 
 
 def p_rows(ops: StepOps, y, u, v, qp, send_rows, ref, candidates, win: int,

@@ -46,6 +46,7 @@ class JpegStream(NamedTuple):
     byte_lens: torch.Tensor   # (S,) int32
     flags: torch.Tensor       # (2,) int32: [e_cap/w_cap overflow of any
     #                                         stripe, out_cap overflow]
+    # (the seat entries: data (n_seats, out_cap), flags (n_seats, 2))
 
 
 def jpeg_pack_plain(payload, nbits, e_cap: int, w_cap: int,
@@ -61,27 +62,75 @@ def jpeg_pack_plain(payload, nbits, e_cap: int, w_cap: int,
                       buf.byte_lens, flags)
 
 
+def _check_pack(payload, nbits) -> None:
+    S, m = payload.shape[0], payload.shape[1]
+    _check(payload, "payload", torch.int32, (S, m, 64), payload.device)
+    _check(nbits, "nbits", torch.uint8, (S, m, 64), payload.device)
+
+
+def _launch_pack(entry: str, n_seats, payload, nbits, e_cap: int,
+                 w_cap: int, out_cap: int) -> JpegStream:
+    """K9's outputs and launch; ``n_seats`` None is the single-frame
+    entry (whose data and flags have no seat axis)."""
+    S, m = payload.shape[0], payload.shape[1]
+    dev = payload.device
+    seats = () if n_seats is None else (n_seats,)
+    words = torch.empty((S, w_cap), dtype=torch.int32, device=dev)
+    total_bits = torch.empty((S,), dtype=torch.int32, device=dev)
+    n_events = torch.empty((S,), dtype=torch.int32, device=dev)
+    data = torch.empty(seats + (out_cap,), dtype=torch.uint8, device=dev)
+    byte_lens = torch.empty((S,), dtype=torch.int32, device=dev)
+    flags = torch.empty(seats + (2,), dtype=torch.int32, device=dev)
+    # scratch: per-block bit counts and event counts, then their starts
+    scratch = torch.empty((3, S, m), dtype=torch.int32, device=dev)
+    _cuda.launch(entry, payload, nbits, *seats, S, m, e_cap, w_cap, out_cap,
+                 scratch, words, total_bits, n_events, data, byte_lens, flags)
+    return JpegStream(words, total_bits, n_events, data, byte_lens, flags)
+
+
 def jpeg_pack(payload, nbits, e_cap: int, w_cap: int,
               out_cap: int) -> JpegStream:
     """K9 (csrc/jpeg_pack.cu) for CUDA tensors, else
     :func:`jpeg_pack_plain`; same contract."""
-    S, m = payload.shape[0], payload.shape[1]
-    dev = payload.device
-    _check(payload, "payload", torch.int32, (S, m, 64), dev)
-    _check(nbits, "nbits", torch.uint8, (S, m, 64), dev)
+    _check_pack(payload, nbits)
     if _on_cpu(payload):
         return jpeg_pack_plain(payload, nbits, e_cap, w_cap, out_cap)
-    words = torch.empty((S, w_cap), dtype=torch.int32, device=dev)
-    total_bits = torch.empty((S,), dtype=torch.int32, device=dev)
-    n_events = torch.empty((S,), dtype=torch.int32, device=dev)
-    data = torch.empty((out_cap,), dtype=torch.uint8, device=dev)
-    byte_lens = torch.empty((S,), dtype=torch.int32, device=dev)
-    flags = torch.empty((2,), dtype=torch.int32, device=dev)
-    # scratch: per-block bit counts and event counts, then their starts
-    scratch = torch.empty((3, S, m), dtype=torch.int32, device=dev)
-    _cuda.launch("jpeg_pack", payload, nbits, S, m, e_cap, w_cap, out_cap,
-                 scratch, words, total_bits, n_events, data, byte_lens, flags)
-    return JpegStream(words, total_bits, n_events, data, byte_lens, flags)
+    return _launch_pack("jpeg_pack", None, payload, nbits, e_cap, w_cap,
+                        out_cap)
+
+
+def jpeg_pack_seats_plain(payload, nbits, e_cap: int, w_cap: int,
+                          out_cap: int, n_seats: int) -> JpegStream:
+    """The stripes of ``n_seats`` seats, back to back, each seat packed
+    by :func:`jpeg_pack_plain` (the reference vmaps its step over seats).
+    -> words, total_bits, n_events and byte_lens over all stripes, data
+    (n_seats, out_cap), flags (n_seats, 2)."""
+    n = payload.shape[0] // n_seats
+    outs = [jpeg_pack_plain(payload[k * n:(k + 1) * n],
+                            nbits[k * n:(k + 1) * n], e_cap, w_cap, out_cap)
+            for k in range(n_seats)]
+    return JpegStream(*(torch.cat([getattr(o, f) for o in outs])
+                        for f in ("words", "total_bits", "n_events")),
+                      torch.stack([o.data for o in outs]),
+                      torch.cat([o.byte_lens for o in outs]),
+                      torch.stack([o.flags for o in outs]))
+
+
+def jpeg_pack_seats(payload, nbits, e_cap: int, w_cap: int, out_cap: int,
+                    n_seats: int) -> JpegStream:
+    """K9's seat entry (``jpeg_pack_seats`` in csrc/jpeg_pack.cu, one
+    launch for every seat) for CUDA tensors, else
+    :func:`jpeg_pack_seats_plain`. ``payload``/``nbits`` hold the stripes
+    of ``n_seats`` seats back to back."""
+    _check_pack(payload, nbits)
+    if n_seats < 1 or payload.shape[0] % n_seats:
+        raise ValueError(f"{payload.shape[0]} stripes do not split into "
+                         f"{n_seats} seats")
+    if _on_cpu(payload):
+        return jpeg_pack_seats_plain(payload, nbits, e_cap, w_cap, out_cap,
+                                     n_seats)
+    return _launch_pack("jpeg_pack_seats", n_seats, payload, nbits, e_cap,
+                        w_cap, out_cap)
 
 
 class JpegOps(NamedTuple):
@@ -95,6 +144,10 @@ class JpegOps(NamedTuple):
 KERNEL_OPS = JpegOps(row_damage_probe, jpeg_forward, jpeg_events, jpeg_pack)
 PLAIN_OPS = JpegOps(row_damage_probe_plain, jpeg_forward_plain,
                     jpeg_events_plain, jpeg_pack_plain)
+#: the multi-seat step's sets (parallel/seats.py): K9's seat entry, which
+#: takes ``n_seats``, in place of the single-frame one
+SEAT_KERNEL_OPS = KERNEL_OPS._replace(jpeg_pack=jpeg_pack_seats)
+SEAT_PLAIN_OPS = PLAIN_OPS._replace(jpeg_pack=jpeg_pack_seats_plain)
 
 
 def jpeg_encode_device(rgb, qy, qc, subsampling: str, e_cap: int,

@@ -1,0 +1,17 @@
+"""Multi-seat encoding on one card (selkies_tpu/parallel's counterpart).
+
+The reference shards N seats over a device mesh, one encode dispatch a
+tick driving every seat. On one H100 a seat is a batch index of the
+same kernels: each tick launches each kernel once for all seats
+(:class:`MultiSeatEncoder`, :class:`MultiSeatH264Encoder`), and
+:class:`~.capture.MultiSeatCapture` is the ScreenCapture-compatible loop
+over them. Seats across several cards and split-frame encoding
+(``parallel/stripes.py``) are not ported yet (ROADMAP A11b).
+"""
+
+from .capture import MultiSeatCapture
+from .h264_seats import MultiSeatH264Encoder
+from .seats import MultiSeatEncoder, seat_mesh, synthetic_seat_frames
+
+__all__ = ["MultiSeatCapture", "MultiSeatEncoder", "MultiSeatH264Encoder",
+           "seat_mesh", "synthetic_seat_frames"]

@@ -10,8 +10,10 @@ JPEG kernels 4:2:0 and 4:4:4, per-stripe tables at qualities 10 to 100
 and tables of 1/16 that expose one ulp of a coefficient, values past the
 category caps, and word and byte buffers too small; for the H.264 4:4:4
 kernels K13-K16 and K5's 4:4:4 entry the same cases, the CSC over all
-2^24 byte triples and the fullcolor session) and must match it exactly,
-overflow flags included. Tolerance: 0.
+2^24 byte triples and the fullcolor session; for the seat entries of K4,
+K9 and K10 one to four seats, one of whose rows overflows and spills,
+and both multi-seat encoders through a one-seat overflow) and must match
+it exactly, overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -666,3 +668,135 @@ def test_444_session_on_the_card(dev, partial):
             == [(c.stripe_y, c.is_idr, c.payload) for c in b]
         for k in ("_ref_y", "_ref_u", "_ref_v", "_prev", "_sent", "_fnum"):
             assert torch.equal(getattr(kern, k), getattr(plain, k)), k
+
+
+# ------------------------------------------------ multi-seat entries (K4,
+# K9, K10 with a seat axis) and the multi-seat encoders
+def _seat_pack_inputs(dev, rng, n_seats, rows, mb_w, intra):
+    """K4 inputs for ``n_seats`` seats of ``rows`` MB rows: random slot
+    events, with every slot of seat 0's last row carrying 16 bits, so
+    that row overflows a small w_cap and spills into the words after it
+    (never into seat 1's). P rows leave header slot 0 empty: K4 puts the
+    skip run there (K2-P writes no bits into it)."""
+    R, sb = n_seats * rows, HP.SB_I if intra else HP.SB_P
+    hdr_nb = rng.integers(0, 8, (R, mb_w, HP.HDR_SLOTS)).astype(np.int32)
+    if not intra:
+        hdr_nb[..., 0] = 0
+    ev_nb = rng.integers(0, 3, (R, mb_w, sb)).astype(np.uint8)
+    ev_nb[rows - 1] = 16
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    hdr_pay = t(rng.integers(0, 256, hdr_nb.shape).astype(np.int32)) \
+        & ((1 << t(hdr_nb)) - 1)
+    pay = t(rng.integers(0, 1 << 16, ev_nb.shape).astype(np.int32)) \
+        & ((1 << t(ev_nb).to(torch.int32)) - 1)
+    return (hdr_pay, t(hdr_nb), pay, t(ev_nb),
+            t(rng.integers(0, 64, (R, 2)).astype(np.int32)),
+            t(np.full((R, 2), 6, np.int32)),
+            t(rng.integers(0, 16, (R,)).astype(np.int32)),
+            t(rng.integers(10, 40, (R,)).astype(np.int32)))
+
+
+@pytest.mark.parametrize("n_seats", [1, 2, 3])
+@pytest.mark.parametrize("intra", [True, False])
+def test_pack_stream_seats(dev, n_seats, intra):
+    rows, mb_w = 3, 4
+    args = _seat_pack_inputs(dev, np.random.default_rng(n_seats), n_seats,
+                             rows, mb_w, intra)
+    for e_cap, w_cap, out_cap in ((10**6, 4096, 1 << 16),
+                                  (10**6, 256, 1 << 16),
+                                  (500, 4096, 64)):
+        a = (*args, intra, e_cap, w_cap, out_cap)
+        k = HP.pack_stream_seats(*a, n_seats=n_seats)
+        p = HP.pack_stream_seats_plain(*a, n_seats=n_seats)
+        _same(k, p)
+        assert k.data.shape == (n_seats, out_cap)
+    # the single-frame entry is the one-seat case
+    a = (*(x[:rows] for x in args), intra, 10**6, 256, 1 << 16)
+    k1, p1 = HP.pack_stream(*a), HP.pack_stream_seats_plain(*a, n_seats=1)
+    _same([k1.words, k1.total_bits, k1.data, k1.byte_lens, k1.flags],
+          [p1.words, p1.total_bits, p1.data[0], p1.byte_lens, p1.flags[0]])
+
+
+@pytest.mark.parametrize("geom", JPEG_GEOMS)
+@pytest.mark.parametrize("n_seats", [1, 3])
+def test_jpeg_pack_seats(dev, geom, n_seats):
+    H, W, sh, sub = geom
+    evs = []
+    for k in range(n_seats):
+        S, _, _, _, planes, scan = _jpeg_stage(dev, H, W, sh, sub,
+                                               q=(10 + 40 * k, 90))
+        evs.append(JE.jpeg_events_plain(*planes, scan, S))
+    ev = [torch.cat([e[i] for e in evs]) for i in range(2)]
+    m = scan.shape[1]
+    for e_cap, w_cap, out_cap in ((m * 64, sh * W // 2, 1 << 16),
+                                  (m * 64, 16, 1 << 16),
+                                  (100, sh * W // 2, 64)):
+        args = (*ev, e_cap, w_cap, out_cap)
+        k = JPP.jpeg_pack_seats(*args, n_seats=n_seats)
+        _same(k, JPP.jpeg_pack_seats_plain(*args, n_seats=n_seats))
+        assert k.flags.shape == (n_seats, 2)
+
+
+@pytest.mark.parametrize("geom", FRAME_GEOMS)
+@pytest.mark.parametrize("n_seats", [1, 4])
+@pytest.mark.parametrize("tick", [0, 95, 2**31 - 100])
+def test_synthetic_frames(dev, geom, n_seats, tick):
+    """K10's seat entry: seat k at phase k * 37 + tick, wrapping int32."""
+    from selkies_tpu_torch.ops import frames as FR
+    H, W = geom
+    _same([FR.synthetic_frames(H, W, n_seats, tick, dev)],
+          [FR.synthetic_frames_plain(H, W, n_seats, tick, dev)])
+
+
+def _seat_script(dev, n, H, W, noisy_seat):
+    from selkies_tpu_torch.ops import frames as FR
+    base = FR.synthetic_frames(H, W, n, 0, dev)
+    rng = np.random.default_rng(11)
+    noise = torch.as_tensor(rng.integers(0, 256, (H, W, 3), dtype=np.uint8),
+                            device=dev)
+    t1 = base.clone()
+    t1[1, 20:28, 8:40] = 20
+    t1[2] = FR.synthetic_frame(H, W, 77, dev)
+    t1[3] = torch.roll(base[3], 4, 0)
+    t2 = t1.clone()
+    t2[noisy_seat] = noise
+    t3 = t2.clone()
+    t3[noisy_seat] = base[noisy_seat]
+    return [(base, True), (t1, False), (t1, False), (t2, False),
+            (t3, False), (t3, True)]
+
+
+@pytest.mark.parametrize("mode", ["jpeg", "h264"])
+def test_multiseat_encoder_on_the_card(dev, mode):
+    """Each multi-seat encoder on the kernels equals it on the plain
+    versions (on the card) through damaged, idle, paint-over and forced
+    ticks and an overflow of one seat's buffer: equal chunks and state."""
+    from selkies_tpu_torch.engine.types import CaptureSettings
+    from selkies_tpu_torch.parallel import (MultiSeatEncoder,
+                                            MultiSeatH264Encoder)
+    n, H, W = 4, 64, 128
+    kw = dict(capture_width=W, capture_height=H, stripe_height=32,
+              paint_over_delay_frames=2)
+    if mode == "h264":
+        kw.update(output_mode="h264", h264_motion_vrange=4,
+                  h264_motion_hrange=2)
+    cls = MultiSeatH264Encoder if mode == "h264" else MultiSeatEncoder
+    plain_ops = HP.SEAT_PLAIN_OPS if mode == "h264" else JPP.SEAT_PLAIN_OPS
+    encs = [cls(CaptureSettings(**kw), n) for _ in range(2)]
+    encs[1]._ops = plain_ops
+    for e in encs:
+        e._out_cap = 3000
+        e._rebuild_steps()
+    for frames, force in _seat_script(dev, n, H, W, noisy_seat=2):
+        outs = []
+        for e in encs:
+            out = e.encode(frames, force=force) if mode == "h264" \
+                else e.encode(frames)
+            outs.append([[(c.stripe_y, c.is_idr, c.payload) for c in s]
+                         for s in e.finalize(out, force_all=force)])
+        assert outs[0] == outs[1]
+        for key in encs[0].STATE_KEYS.arrays:
+            assert torch.equal(getattr(encs[0], key),
+                               getattr(encs[1], key)), key
+        assert (encs[0]._force_after_drop == encs[1]._force_after_drop).all()
+    assert encs[0]._cap_gen == 1, "the noise seat did not overflow"

@@ -67,6 +67,44 @@ def test_engine_loop_modules_are_checked():
     assert set(LOOP_MODULES) <= set(PORT_MODULES)
 
 
+#: the multi-seat modules
+SEAT_MODULES = [
+    "selkies_tpu_torch.parallel", "selkies_tpu_torch.parallel.seats",
+    "selkies_tpu_torch.parallel.h264_seats",
+    "selkies_tpu_torch.parallel.capture"]
+
+
+def test_multiseat_modules_are_checked():
+    """The multi-seat modules are among those the import check imports
+    (no jax, selkies_tpu or triton after importing them) and the AST scan
+    reads."""
+    assert set(SEAT_MODULES) <= set(PORT_MODULES)
+
+
+def test_multiseat_entry_points_default_to_the_card():
+    """The multi-seat encoders, their mesh, the capture facade and K10's
+    seat entry run on the card unless the CPU is named: without CUDA
+    each raises instead of running the plain versions on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    from selkies_tpu_torch import parallel
+    from selkies_tpu_torch.ops import frames
+    jpeg = CaptureSettings(capture_width=64, capture_height=64,
+                           stripe_height=32)
+    h264 = dataclasses.replace(jpeg, output_mode="h264")
+    calls = [lambda: parallel.MultiSeatEncoder(jpeg, 2),
+             lambda: parallel.MultiSeatH264Encoder(h264, 2),
+             lambda: parallel.MultiSeatCapture(2),
+             lambda: parallel.seat_mesh(2),
+             lambda: frames.synthetic_frames(48, 64, 2, 0)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    enc = parallel.MultiSeatH264Encoder(h264, 2, devices=["cpu"])
+    assert enc.device.type == "cpu"
+    assert parallel.MultiSeatCapture(2, device="cpu").device.type == "cpu"
+
+
 @pytest.mark.parametrize("path", PORT_FILES)
 def test_no_forbidden_imports(path):
     """AST scan: no jax / selkies_tpu import anywhere, no triton at module
