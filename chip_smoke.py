@@ -8,7 +8,8 @@ them, each beside the same sequence through the kernels' plain PyTorch
 versions on the same card, requiring equal chunks and equal state frame
 by frame, then the capture loop for both codecs, then both H.264
 sequences and the H.264 capture loop again at 4:4:4, then four seats of
-each codec through the multi-seat encoders and their capture loop:
+each codec through the multi-seat encoders and their capture loop, then
+the default H.264 sequence again with ROI QP:
 
 1. the stock configuration (zero-MV P frames, no band path): IDR,
    damaged and idle P frames, paint-over, a forced IDR and one overflow
@@ -56,7 +57,13 @@ each codec through the multi-seat encoders and their capture loop:
    did not overflow are untouched by the one that did), and
    ``MultiSeatCapture`` at depth 2 its depth-1 run. Launches per tick
    are counted at 1, 2, 4 and 8 seats (each kernel once, whatever the
-   seat count), and a full-damage tick is timed at each.
+   seat count), and a full-damage tick is timed at each;
+7. roi (``h264_roi_qp``): the sequence of 2 with ROI QP, once at the
+   default bias 4 and once at bias 12 after ``set_qp(12)``, where the
+   lower clip to QP 8 bites, kernels against plain; every band frame
+   must launch K17 ``roi_qp_plane``, K2-P's per-MB-QP entry and K18
+   ``mb_qp_delta`` once each (and K2-P's row-QP entry never), and the
+   other six paths none of them.
 
 Each run resets the launch counters first and requires every kernel of
 its path to have launched. Then each kernel is held against its plain
@@ -160,6 +167,12 @@ KERNELS = {
                         "selkies_tpu/parallel/seats.py:93"),
     "synthetic_frames": ("selkies_tpu_torch/csrc/synthetic_frame.cu",
                          "selkies_tpu/parallel/seats.py:267"),
+    "roi_qp_plane": ("selkies_tpu_torch/csrc/roi_qp_plane.cu",
+                     "selkies_tpu/engine/h264_encoder.py:317"),
+    "mb_encode_p_qp": ("selkies_tpu_torch/csrc/mb_encode.cu",
+                       "selkies_tpu/ops/h264_planes.py:875"),
+    "mb_qp_delta": ("selkies_tpu_torch/csrc/mb_qp_delta.cu",
+                    "selkies_tpu/ops/h264_planes.py:1089"),
 }
 #: kernels each path launches
 STOCK_PATH = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
@@ -185,6 +198,11 @@ SEATS_H264_P = ("csc420_damage", "motion_select", "mb_encode_p",
                 "cavlc_events", "pack_stream_seats")
 SEATS_PATH = tuple(dict.fromkeys(SEATS_JPEG_TICK + SEATS_H264_I
                                  + SEATS_H264_P + ("synthetic_frames",)))
+#: the default path with ROI QP: K17 and K18, and K2-P's per-MB-QP entry
+#: in place of its row-QP one on the band frames (I frames keep K2-I)
+ROI_KERNELS = ("roi_qp_plane", "mb_qp_delta", "mb_encode_p_qp")
+ROI_PATH = tuple(k for k in DEFAULT_PATH if k != "mb_encode_p") + ROI_KERNELS
+ROI_RUNS = ((4, None), (12, 12))  # (bias, set_qp) of the seventh path
 SEATS = 4                        # seats of the sixth path
 SEAT_COUNTS = (1, 2, 4, 8)       # seat counts of the launch and time rows
 NOISY_SEAT = 2                   # the seat whose buffer the script overflows
@@ -620,6 +638,8 @@ def kernel_checks(frames, sess, grown) -> dict:
         nbytes(*kref) * sent_frac)
     out["mb_encode_p"] = (err, ms, pms, by, 1200 * 24 * R * M, None)
     res = {"mb_encode_i": (i_out, i_ref), "mb_encode_p": (p_out, kref)}
+    out.update(roi_kernel_checks(f0, f1, p_planes, qp, send_rows, pred, mv,
+                                 i_ref, sent_frac, flush))
 
     # K6: the band path's probe, frame f1 against prev f0
     ko = HP.row_damage_probe(f1, f0)
@@ -671,6 +691,82 @@ def kernel_checks(frames, sess, grown) -> dict:
                 out["pack_stream"] = (err, ms, pms,
                                       nbytes(hp, hn, *ko, *k4),
                                       10 * ko[1].numel(), None)
+    return out
+
+
+def roi_kernel_checks(f0, f1, p_planes, qp, send_rows, pred, mv, i_ref,
+                      sent_frac, flush) -> dict:
+    """ROI QP's kernels at the 1080p shapes, tolerance 0, then timed:
+    K2-P's per-MB-QP entry on :func:`kernel_checks`' P inputs with a
+    seeded QP plane over 0..51, K18 on its headers, K17 on frame f1
+    against f0 (whole frame: the band of a full-dirty frame) beside one
+    torch expression of the same damage."""
+    dev = f1.device
+    R, M = qp.shape[0], f1.shape[1] // 16
+    rng = np.random.default_rng(SEED + 7)
+    qp_mb = torch.as_tensor(rng.integers(0, 52, (R, M)).astype(np.int32),
+                            device=dev)
+    out = {}
+    kref = [t.clone() for t in i_ref]
+    pref = [t.clone() for t in i_ref]
+    ko = HP.mb_encode_p(*p_planes, qp, send_rows, *pred, mv, *kref,
+                        qp_mb=qp_mb)
+    po = HP.mb_encode_p_plain(*p_planes, qp, send_rows, *pred, mv, *pref,
+                              qp_mb=qp_mb)
+    err = max_abs_err(list(ko) + kref, list(po) + pref)
+    check(err == 0, f"mb_encode_p with qp_mb differs from plain (err {err})")
+    work = [t.clone() for t in i_ref]
+
+    def restore_p():
+        for w, b in zip(work, i_ref):
+            w.copy_(b)
+    ms = time_fn(lambda: HP.mb_encode_p(*p_planes, qp, send_rows, *pred, mv,
+                                        *work, qp_mb=qp_mb), 20,
+                 restore=restore_p, flush=flush, hide_launch=True)
+    pms = time_fn(lambda: HP.mb_encode_p_plain(
+        *p_planes, qp, send_rows, *pred, mv, *work, qp_mb=qp_mb), 3,
+        restore=restore_p)
+    by = nbytes(*p_planes, qp, send_rows, *pred, mv, qp_mb, *ko) + int(
+        nbytes(*kref) * sent_frac)
+    out["mb_encode_p_qp"] = (err, ms, pms, by, 1200 * 24 * R * M, None)
+
+    # K18 on those headers (it rewrites slot 5 in place: each call starts
+    # from K2-P's output)
+    hp, hn = ko[2], ko[3]
+    wk = [hp.clone(), hn.clone()]
+    wp = [hp.clone(), hn.clone()]
+    err = max_abs_err(HP.mb_qp_delta(*wk, qp_mb, qp),
+                      HP.mb_qp_delta_plain(*wp, qp_mb, qp))
+    check(err == 0, f"mb_qp_delta differs from plain (err {err})")
+    check(bool((wk[1][..., 5] > 1).any()), "K18 check wrote no non-zero "
+          "delta")
+
+    def restore_h():
+        wk[0].copy_(hp)
+        wk[1].copy_(hn)
+    ms = time_fn(lambda: HP.mb_qp_delta(*wk, qp_mb, qp), 20,
+                 restore=restore_h, flush=flush, hide_launch=True)
+    pms = time_fn(lambda: HP.mb_qp_delta_plain(*wk, qp_mb, qp), 3,
+                  restore=restore_h)
+    # slot 5 of hdr_nb read, of hdr_pay and hdr_nb written (4 bytes each)
+    out["mb_qp_delta"] = (err, ms, pms, nbytes(qp_mb, qp) + 12 * R * M,
+                          10 * R * M, None)
+
+    # K17: the whole frame as the band, QP 25 rows less bias 4
+    qp_rows = torch.full((R,), 25, dtype=torch.int32, device=dev)
+    ko = HP.roi_qp_plane(f1, f0, qp_rows, 4)
+    po = HP.roi_qp_plane_plain(f1, f0, qp_rows, 4)
+    err = max_abs_err([ko], [po])
+    check(err == 0, f"roi_qp_plane differs from plain (err {err})")
+    check(0 < int((ko == 21).sum()) < R * M, "K17 check frame should dirty "
+          "some MBs and not others")
+    ms = time_fn(lambda: HP.roi_qp_plane(f1, f0, qp_rows, 4), 20,
+                 flush=flush, hide_launch=True)
+    pms = time_fn(lambda: HP.roi_qp_plane_plain(f1, f0, qp_rows, 4), 3)
+    lib = time_fn(lambda: (f1 != f0).view(R, 16, M, 48).any(3).any(1), 20,
+                  flush=flush, hide_launch=True)
+    out["roi_qp_plane"] = (err, ms, pms, nbytes(f1, f0, qp_rows, ko),
+                           f1.numel(), lib)
     return out
 
 
@@ -867,6 +963,57 @@ def fullcolor_path(settings, dsettings, frames, seq) -> dict:
             "grown": (kern._w_cap, kern._out_cap)}
 
 
+def roi_path(dsettings, seq, dlog) -> dict:
+    """The seventh path: the default sequence with ROI QP for each of
+    ``ROI_RUNS``, kernels against plain (chunks and state, frame by
+    frame); K17, K2-P's per-MB-QP entry and K18 once per band frame. At
+    the default bias the band frames' bytes must differ from the default
+    path's ``dlog``. -> {"launches": {run: launches}, "bands": n}."""
+    res = {"launches": {}}
+    for bias, qp in ROI_RUNS:
+        rs = dataclasses.replace(dsettings, h264_roi_qp=True,
+                                 h264_roi_qp_bias=bias)
+        kern, plain = H264EncoderSession(rs), plain_session(rs)
+        if qp is not None:
+            kern.set_qp(qp)
+            plain.set_qp(qp)
+        name = f"roi bias {bias}" + (f" qp {qp}" if qp else "")
+        log, lc = run_path(name, ROI_PATH, lambda: run_default_sequence(
+            kern, seq, check_idle=True))
+        if kern._cap_gen:
+            # at QP 8 the full-dirty frame outgrows the stock byte buffer:
+            # an overflow episode on the band path (dropped, buffers
+            # doubled, the next frame an IDR), on both paths alike
+            dropped = [n for (n, _, _), (c, _, band, _) in zip(seq, log)
+                       if band is not None and not c]
+            check(dropped == ["full_dirty"] and kern._cap_gen == 1,
+                  f"{name}: dropped band frames {dropped}, "
+                  f"{kern._cap_gen} growths")
+            print(f"{name}: the full-dirty frame overflowed the stock "
+                  "buffers and was dropped; the buffers grew once")
+        else:
+            check_default_log(log, seq, kern)
+        compare_runs(log, run_default_sequence(plain, seq))
+        n_band = sum(band is not None for _, _, band, _ in log)
+        check(all(lc[k] == n_band for k in ROI_KERNELS)
+              and lc["mb_encode_p"] == 0,
+              f"{name}: {n_band} band frames, launches "
+              f"{ {k: lc[k] for k in ROI_KERNELS + ('mb_encode_p',)} }")
+        if qp is None:
+            differ = [i for i, (a, b) in enumerate(zip(log, dlog))
+                      if a[2] is not None
+                      and [c.payload for c in a[0]]
+                      != [c.payload for c in b[0]]]
+            check(differ, f"{name}: no band frame differs from the path "
+                  "without ROI QP")
+        print(f"{name}: kernel path == plain path: chunks, state, mv "
+              f"fields, bands, {len(log)} frames, {n_band} band frames, "
+              "each launching K17, K2-P's per-MB-QP entry and K18 once")
+        res["launches"][name] = lc
+        res["bands"] = n_band
+    return res
+
+
 def count_syncs(fn):
     """-> (fn(), the synchronizing CUDA calls it made, by torch's sync
     debug mode, each as the innermost line of this repository on the
@@ -899,10 +1046,11 @@ def count_syncs(fn):
     return res, where
 
 
-def sync_checks(settings, dsettings, base, typed) -> dict:
+def sync_checks(settings, dsettings, base, typed, rsettings=None) -> dict:
     """Host syncs inside encode(): none on the stock path (with or
     without motion), exactly one (the row probe) on every frame of the
-    band path, idle and I frames included."""
+    band path, idle and I frames included, and with ROI QP
+    (``rsettings``) too."""
     res = {}
 
     def encode(sess, frame, force=False):
@@ -915,13 +1063,17 @@ def sync_checks(settings, dsettings, base, typed) -> dict:
         sess.finalize(sess.encode(base))
         res[f"{name}_P"] = encode(sess, typed)
         res[f"{name}_I"] = encode(sess, typed, True)
-    sess = H264EncoderSession(dsettings)
-    sess.finalize(sess.encode(base))
-    res["band_P"] = encode(sess, typed)
-    res["band_idle"] = encode(sess, typed)
-    res["band_I"] = encode(sess, typed, True)
+    bands = {"band": dsettings}
+    if rsettings is not None:
+        bands["roi_band"] = rsettings
+    for name, s in bands.items():
+        sess = H264EncoderSession(s)
+        sess.finalize(sess.encode(base))
+        res[f"{name}_P"] = encode(sess, typed)
+        res[f"{name}_idle"] = encode(sess, typed)
+        res[f"{name}_I"] = encode(sess, typed, True)
     counts = {k: len(v) for k, v in res.items()}
-    want = {k: 1 if k.startswith("band") else 0 for k in res}
+    want = {k: 0 if k.startswith("stock") else 1 for k in res}
     check(counts == want, f"syncs inside encode {res}, expected {want}")
     return res
 
@@ -1811,6 +1963,7 @@ def run_path(name: str, path: tuple, run) -> tuple:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1935,6 +2088,18 @@ def main() -> int:
         print(f"seats full-damage tick at {n} seats (encode + finalize, "
               f"ms, host clock, median of 7): " + json.dumps(kinds))
 
+    # 7. roi: the default sequence with ROI QP, at bias 4 and at bias 12
+    roi = roi_path(dsettings, seq, dlog)
+    roi_launches = {k: sum(lc[k] for lc in roi["launches"].values())
+                    for k in KERNELS}
+    others = {"stock": stock_launches, "default": launches,
+              "jpeg": jpeg_launches, "capture": capture_launches,
+              **{f"fullcolor {k}": v for k, v in fc["launches"].items()},
+              "seats": seats["launches"]}
+    for run, lc in others.items():
+        bad = {k: lc[k] for k in ROI_KERNELS if lc.get(k)}
+        check(not bad, f"the {run} path launched ROI QP kernels {bad}")
+
     # the overflow episodes grew the buffers: the kernels are checked and
     # timed at the stock caps
     stock = H264EncoderSession(settings)
@@ -1976,7 +2141,8 @@ def main() -> int:
     jtimes = jpeg_frame_times(jsettings, {"full": (255 - jf0, jf0),
                                           "damaged": (jf0, jf1),
                                           "idle": (jf1, jf1)})
-    syncs = sync_checks(settings, dsettings, base, typed)
+    syncs = sync_checks(settings, dsettings, base, typed,
+                        dataclasses.replace(dsettings, h264_roi_qp=True))
     fsyncs = sync_checks(dataclasses.replace(settings, fullcolor=True),
                          fdsettings, base, typed)
     jsess = JpegEncoderSession(jsettings)
@@ -2033,6 +2199,7 @@ def main() -> int:
         n += capture_launches[name]
         n += fc_launches[name]
         n += seats["launches"][name]
+        n += roi_launches[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
@@ -2044,6 +2211,9 @@ def main() -> int:
               f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
+    print(f"roi path launches: {json.dumps(roi['launches'])}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of its 1200 s "
+          "limit, the kernels' build included")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

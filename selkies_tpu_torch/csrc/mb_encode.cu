@@ -213,7 +213,12 @@ __global__ void mb_encode_i_kernel(const uint8_t* __restrict__ yp,
 
 // ---------------------------------------------------------------- P frames
 // pred_* may alias ref_* (zero motion, mv null); mv (R, M, 2) quarter-pel
-// (mvx, mvy); send_rows (R,) gates the recon write per MB row.
+// (mvx, mvy); send_rows (R,) gates the recon write per MB row. qp_mb
+// (R, M), ROI QP's per-MB QP plane (selkies_tpu/ops/h264_planes.py:
+// h264_encode_p_yuv's qp_mb branch), or null for the row QPs: each MB
+// reads its luma QP and its chroma QP K_QPC[clip(qp, 0, 51)] once, so the
+// row-QP path is unchanged. The mb_qp_delta slot stays ue(0); K18 writes
+// the deltas.
 __global__ void mb_encode_p_kernel(const uint8_t* __restrict__ yp,
                                    const uint8_t* __restrict__ up,
                                    const uint8_t* __restrict__ vp,
@@ -223,6 +228,7 @@ __global__ void mb_encode_p_kernel(const uint8_t* __restrict__ yp,
                                    const uint8_t* pred_u,
                                    const uint8_t* pred_v,
                                    const int* __restrict__ mv,
+                                   const int* __restrict__ qp_mb,
                                    uint8_t* ref_y, uint8_t* ref_u,
                                    uint8_t* ref_v, int16_t* __restrict__ lv,
                                    int* __restrict__ cbp_out,
@@ -233,7 +239,7 @@ __global__ void mb_encode_p_kernel(const uint8_t* __restrict__ yp,
   if (g >= R * M) return;                      // whole warp leaves together
   const int r = g / M, m = g % M;
   const int W = M * 16, W2 = M * 8;
-  const int qp = qp_rows[r];
+  const int qp = qp_mb ? qp_mb[g] : qp_rows[r];
   const int qpc = K_QPC[clampi(qp, 0, 51)];
   const bool sent = send_rows[r] != 0;
   const bool is_luma = lane < 16, is_chroma = lane >= 16 && lane < 24;
@@ -358,6 +364,21 @@ extern "C" int mb_encode_i(const uint8_t* y, const uint8_t* u,
   return static_cast<int>(cudaGetLastError());
 }
 
+static int launch_p(const uint8_t* y, const uint8_t* u, const uint8_t* v,
+                    const int* qp, const int* send_rows, const uint8_t* pred_y,
+                    const uint8_t* pred_u, const uint8_t* pred_v,
+                    const int* mv, const int* qp_mb, uint8_t* ref_y,
+                    uint8_t* ref_u, uint8_t* ref_v, int16_t* lv, int* cbp,
+                    int* hdr_pay, int* hdr_nb, int R, int M, void* stream) {
+  const int per_block = 4;                     // one warp per MB
+  const int blocks = (R * M + per_block - 1) / per_block;
+  mb_encode_p_kernel<<<blocks, 32 * per_block, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, qp_mb, ref_y, ref_u,
+      ref_v, lv, cbp, hdr_pay, hdr_nb, R, M);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int mb_encode_p(const uint8_t* y, const uint8_t* u,
                            const uint8_t* v, const int* qp,
                            const int* send_rows, const uint8_t* pred_y,
@@ -365,11 +386,19 @@ extern "C" int mb_encode_p(const uint8_t* y, const uint8_t* u,
                            const int* mv, uint8_t* ref_y, uint8_t* ref_u,
                            uint8_t* ref_v, int16_t* lv, int* cbp, int* hdr_pay,
                            int* hdr_nb, int R, int M, void* stream) {
-  const int per_block = 4;                     // one warp per MB
-  const int blocks = (R * M + per_block - 1) / per_block;
-  mb_encode_p_kernel<<<blocks, 32 * per_block, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, ref_y, ref_u, ref_v,
-      lv, cbp, hdr_pay, hdr_nb, R, M);
-  return static_cast<int>(cudaGetLastError());
+  return launch_p(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, nullptr,
+                  ref_y, ref_u, ref_v, lv, cbp, hdr_pay, hdr_nb, R, M, stream);
+}
+
+// The ROI QP entry: the same kernel with a per-MB QP plane.
+extern "C" int mb_encode_p_qp(const uint8_t* y, const uint8_t* u,
+                              const uint8_t* v, const int* qp,
+                              const int* send_rows, const uint8_t* pred_y,
+                              const uint8_t* pred_u, const uint8_t* pred_v,
+                              const int* mv, const int* qp_mb, uint8_t* ref_y,
+                              uint8_t* ref_u, uint8_t* ref_v, int16_t* lv,
+                              int* cbp, int* hdr_pay, int* hdr_nb, int R,
+                              int M, void* stream) {
+  return launch_p(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, qp_mb,
+                  ref_y, ref_u, ref_v, lv, cbp, hdr_pay, hdr_nb, R, M, stream);
 }

@@ -19,18 +19,24 @@ motion search, the damage-proportional band path) and in the stock one
   host-built all-skip slices for the clean rows of sent stripes; idle
   frames launch nothing;
 - ``watermark_path``: a PNG blended into every frame before the step
-  (engine/watermark.py, K12), anchored to the visible size.
+  (engine/watermark.py, K12), anchored to the visible size;
+- ``h264_roi_qp`` (ROI QP, 4:2:0 band path only): the macroblocks of a
+  band that differ from the previous frame are coded
+  ``h264_roi_qp_bias`` below their row's QP (clipped to [8, 48]), the
+  per-MB QPs reaching the wire as mb_qp_delta syntax.
 
 One stock frame is K1 ``csc420_damage``, K5 ``motion_select`` (when
 motion is on), K2 ``mb_encode_i``/``mb_encode_p``, K3 ``cavlc_events``
 and K4 ``pack_stream`` (ops/h264_planes.py, ops/h264_encode.py), plus
 (S,)-sized torch ops for age, paint-over, send, ``sent``/``fnum``,
 per-row qp and ``idr_pic_id``. A band frame is K6 ``row_damage_probe``
-on the whole frame, then K1, K5, K2, K3 and K4 on the band rows. At
-4:4:4 K13 ``csc444_damage``, K5's ``motion_select444``, K14
+on the whole frame, then K1, K5, K2, K3 and K4 on the band rows; with
+ROI QP K17 ``roi_qp_plane`` runs before K1 and K18 ``mb_qp_delta``
+after K2. At 4:4:4 K13 ``csc444_damage``, K5's ``motion_select444``, K14
 ``mb_encode_i444``/K15 ``mb_encode_p444`` and K16 ``cavlc_events444``
 (ops/h264_planes444.py) take the places of K1, K5, K2 and K3; K4 and K6
-are shared. ``h264_roi_qp`` is ignored at 4:4:4, as in the reference.
+are shared. ``h264_roi_qp`` is ignored at 4:4:4 and by the stock step,
+as in the reference.
 Only the byte buffer prefix, the row lengths and the flags leave the
 device.
 
@@ -135,15 +141,10 @@ def _motion_candidates(s: CaptureSettings) -> tuple:
 
 def _check_slice(s: CaptureSettings) -> None:
     """Raise for settings outside the ported slice, naming its ROADMAP
-    item. ROI QP with ``fullcolor`` is not raised: the reference ignores
-    it at 4:4:4."""
-    todo = [(bool(s.h264_roi_qp) and not s.fullcolor,
-             "h264_roi_qp (ROI QP, ROADMAP A16)"),
-            (int(s.stripe_devices) > 1,
-             "stripe_devices>1 (split-frame, ROADMAP A11b)")]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
+    item."""
+    if int(s.stripe_devices) > 1:
+        raise NotImplementedError("stripe_devices>1 (split-frame, ROADMAP "
+                                  "A11b) is not ported yet")
 
 
 def build_h264_step_fn(mode: str, width: int, stripe_h: int, n_stripes: int,
@@ -216,7 +217,8 @@ def build_h264_step_fn(mode: str, width: int, stripe_h: int, n_stripes: int,
 def build_h264_band_step_fn(width: int, stripe_h: int, n_stripes: int,
                             band_rows: int, e_cap: int, w_cap: int,
                             out_cap: int, candidates: tuple = ((0, 0),),
-                            ops: StepOps = KERNEL_OPS, scratch=None):
+                            ops: StepOps = KERNEL_OPS, scratch=None,
+                            roi_qp: int = 0):
     """Band P step: the stock P encode over a ``band_rows``-row band of
     the frame and the reference planes, as views (``narrow`` on whole
     rows; the chroma rows in the ratio of the planes handed over: halved
@@ -229,6 +231,11 @@ def build_h264_band_step_fn(width: int, stripe_h: int, n_stripes: int,
     Motion candidates require ``band_rows`` to cover whole stripes: the
     encoder's search-window clamp must equal the decoder's picture-edge
     clamp, and the picture of a stripe stream is the stripe.
+
+    ``roi_qp`` (ROI QP, 4:2:0; 0 is off): K17 derives the band's per-MB
+    QP plane from the frame against ``prev`` before K1 rewrites ``prev``,
+    K2-P codes at it and K18 writes the mb_qp_delta chain; K5 and the
+    slice headers keep the row QPs. No state crosses frames.
 
     step(frame, prev, sent, fnum, ref_y, ref_u, ref_v, qp_rows, send,
          send_rows, row0, hdr_pay, hdr_nb), with ``qp_rows`` and
@@ -254,6 +261,11 @@ def build_h264_band_step_fn(width: int, stripe_h: int, n_stripes: int,
             return (rows(py, y0, bh), rows(pu, y0 // cdiv, bh // cdiv),
                     rows(pv, y0 // cdiv, bh // cdiv))
 
+        qp_mb = None
+        if roi_qp:
+            # dirty MBs against the previous frame: before K1 updates prev
+            qp_mb = ops.roi_qp_plane(rows(frame, y0, bh), rows(prev, y0, bh),
+                                     qp_rows, roi_qp)
         # the reference's prev_out is the whole frame; rows outside the
         # band are clean by construction (the band covers every row the
         # probe found dirty, so frame == prev there), so K1 updating prev
@@ -266,7 +278,7 @@ def build_h264_band_step_fn(width: int, stripe_h: int, n_stripes: int,
             out = (*planes(*scratch[:3]), rows(scratch[3], row0, band_rows))
         lv, cbp, mb_pay, mb_nb = p_rows(
             ops, y, u, v, qp_rows, send_rows, ref,
-            candidates if motion else None, stripe_h, out)
+            candidates if motion else None, stripe_h, out, qp_mb)
         ev_pay, ev_nb = ops.cavlc_events(lv, cbp, False)
         fn_band = rows(fnum.repeat_interleave(rps), row0, band_rows)
         st = ops.pack_stream(mb_pay, mb_nb, ev_pay, ev_nb,
@@ -367,6 +379,10 @@ class H264EncoderSession:
             if len(self._candidates) > 1 else 1
         #: content-profile floor on the band (set_content_profile)
         self._band_floor = 1
+        #: ROI QP's bias below the row QP (0: off); the band step's only,
+        #: and off at 4:4:4, as in the reference
+        self._roi_qp_bias = int(settings.h264_roi_qp_bias) \
+            if settings.h264_roi_qp and not self.fullcolor else 0
         #: last-frame observability
         self.dirty_fraction = 1.0
         self.last_band_rows = self.n_rows
@@ -389,7 +405,7 @@ class H264EncoderSession:
         return build_h264_band_step_fn(
             g.width, g.stripe_h, g.n_stripes, band_rows, self._e_cap,
             self._w_cap, self._out_cap, self._candidates, ops=self._ops,
-            scratch=self._scratch)
+            scratch=self._scratch, roi_qp=self._roi_qp_bias)
 
     @property
     def visible_size(self) -> tuple[int, int]:

@@ -32,7 +32,8 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = ("csc420_damage", "mb_encode", "cavlc_events", "pack_stream",
            "motion_select", "row_damage_probe", "jpeg_forward",
            "jpeg_events", "jpeg_pack", "synthetic_frame", "pad_frame",
-           "watermark_blend", "csc444_damage", "mb_encode444", "errors")
+           "watermark_blend", "csc444_damage", "mb_encode444",
+           "roi_qp_plane", "mb_qp_delta", "errors")
 LIBRARY = "libselkies_cuda.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -44,6 +45,7 @@ ENTRIES = {
     "csc420_damage": [_P] * 6 + [_I] * 3,
     "mb_encode_i": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 2,
     "mb_encode_p": [_P] * 16 + [_I] * 2,
+    "mb_encode_p_qp": [_P] * 17 + [_I] * 2,
     "cavlc_events": [_P] * 4 + [_I] * 3,
     "pack_stream": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 6 + [_P] * 5,
     "pack_stream_seats": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 7 + [_P] * 5,
@@ -62,6 +64,8 @@ ENTRIES = {
     "mb_encode_p444": [_P] * 16 + [_I] * 2,
     "cavlc_events444": [_P] * 4 + [_I] * 3,
     "motion_select444": [_P] * 6 + [_I] * 4 + [_P] * 4,
+    "roi_qp_plane": [_P] * 4 + [_I] * 3,
+    "mb_qp_delta": [_P] * 4 + [_I] * 2,
 }
 
 #: launches per C entry since the last :func:`reset_launches`

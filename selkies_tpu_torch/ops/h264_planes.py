@@ -18,12 +18,17 @@ MB row). Two layers live here:
    ``mb_encode_i`` /         per-MB transforms, quant, dequant, recon
    ``mb_encode_p`` (K2)      (send-gated, into the reference planes in
                              place), level blocks, MB header events (P:
-                             residual against K5's prediction, se(mvd))
+                             residual against K5's prediction, se(mvd);
+                             with a per-MB QP plane, ROI QP)
    ``cavlc_events`` (K3)     per-block CAVLC (payload, nbits) slots
    ``pack_stream`` (K4)      row bit layout, u32 words, bytes, the one
                              ragged byte buffer and both overflow flags
    ``motion_select`` (K5)    in ops/h264_encode.py: scroll motion search
    ``row_damage_probe`` (K6) per-MB-row damage flags of the band path
+   ``roi_qp_plane`` (K17)    ROI QP: per-MB damage of a band -> the
+                             per-MB QP plane K2-P codes at
+   ``mb_qp_delta`` (K18)     ROI QP: the mb_qp_delta carry chain, into
+                             header slot 5 of K2-P's coded MBs
    ========================  ===========================================
 
 Kernel layouts (R MB rows, M MB columns):
@@ -37,7 +42,9 @@ Kernel layouts (R MB rows, M MB columns):
 - ``cbp`` (R, M) int32: coded_block_pattern (luma bits 0..3 | chroma<<4).
 - ``hdr_pay``/``hdr_nb`` (R, M, 6) int32: MB header events (I: mb_type,
   pred mode, qp delta; P: skip run — filled by the packer —, mb_type,
-  mvd x/y, cbp, qp delta).
+  mvd x/y, cbp, qp delta: ue(0), rewritten by K18 under ROI QP).
+- ``qp_mb`` (R, M) int32: ROI QP's per-MB QP plane (K17 out, K2-P and
+  K18 in).
 - ``ev_pay`` int32 / ``ev_nb`` uint8 (R, M, SB): every block's CAVLC
   slots back to back in bitstream order (SB = 876 for I, 872 for P;
   ops/h264_planes444.py has the 4:4:4 layouts, which K4 packs too); a
@@ -648,6 +655,41 @@ def row_damage_probe(frame, prev, n_rows: int | None = None):
 
 
 # ---------------------------------------------------------------------------
+# K17: ROI QP's per-MB QP plane (the band path, before K1 rewrites prev)
+# ---------------------------------------------------------------------------
+
+def roi_qp_plane_plain(frame, prev, qp_rows, bias: int):
+    """(H, W, 3) uint8 band of the frame and of ``prev``, (R,) int32 row
+    QPs -> (R, M) int32 per-MB QPs: ``qp_rows - bias`` where any byte of
+    the MB's 16x16x3 block differs, else ``qp_rows``, clipped to [8, 48]
+    (the reference band step's ``mb_dirty`` / ``qp_mb``)."""
+    H, W = frame.shape[0], frame.shape[1]
+    R, M = H // 16, W // 16
+    dirty = (frame != prev).reshape(R, 16, M, 48).any(3).any(1)
+    q = qp_rows.to(torch.int32)[:, None]
+    return torch.clamp(torch.where(dirty, q - bias, q), 8, 48).to(
+        torch.int32)
+
+
+def roi_qp_plane(frame, prev, qp_rows, bias: int):
+    """K17 (csrc/roi_qp_plane.cu) for CUDA tensors, else
+    :func:`roi_qp_plane_plain`."""
+    H, W = frame.shape[0], frame.shape[1]
+    dev = frame.device
+    _check(frame, "frame", torch.uint8, (H, W, 3), dev)
+    _check(prev, "prev", torch.uint8, (H, W, 3), dev)
+    if H % 16 or W % 16:
+        raise ValueError("the band must tile into 16x16 MBs")
+    R, M = H // 16, W // 16
+    _check(qp_rows, "qp_rows", torch.int32, (R,), dev)
+    if _on_cpu(frame):
+        return roi_qp_plane_plain(frame, prev, qp_rows, bias)
+    out = torch.empty((R, M), dtype=torch.int32, device=dev)
+    _cuda.launch("roi_qp_plane", frame, prev, qp_rows, out, R, M, int(bias))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K2: per-MB transforms / quant / recon (I and P)
 # ---------------------------------------------------------------------------
 
@@ -740,23 +782,31 @@ _CBP2CODE = HT.CBP_INTER_CBP2CODE
 
 
 def mb_encode_p_plain(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv,
-                      ref_y, ref_u, ref_v):
+                      ref_y, ref_u, ref_v, qp_mb=None):
     """P_L0_16x16 / P_Skip MB coding against a prediction (the
     reference's ``h264_encode_p_yuv`` body, motion branch included):
     residual against ``pred_*``, ``coded = (cbp != 0) | mv_nz``, and
     ``mvd = mv - left neighbour`` as se() header events. ``mv`` (R, M, 2)
     quarter-pel (mvx, mvy), or None for zero motion, where ``pred_*`` may
-    be the reference planes themselves. -> (lv, cbp, hdr_pay, hdr_nb);
-    the recon is written into ``ref_*`` in place for the MB rows with
-    ``send_rows`` set, after the whole prediction has been read."""
+    be the reference planes themselves. ``qp_mb`` (R, M) (ROI QP): each
+    MB's quant, dequant and recon at its own QP, chroma at
+    ``QPC[clip(qp_mb, 0, 51)]``; None: the row ``qp``. The mb_qp_delta
+    slot stays ue(0) (K18 writes the deltas). -> (lv, cbp, hdr_pay,
+    hdr_nb); the recon is written into ``ref_*`` in place for the MB
+    rows with ``send_rows`` set, after the whole prediction has been
+    read."""
     H, W = y.shape
     R, M = H // 16, W // 16
     dev = y.device
-    qp = qp.to(I64)
-    qpc = _qpc_of(qp)
-    qp_by = qp.repeat_interleave(4)[:, None]
-    qpc_by = qpc.repeat_interleave(2)[:, None]
-    qpc_rm = qpc[:, None]
+    if qp_mb is None:
+        qpc = _qpc_of(qp)
+        qp_by = qp.to(I64).repeat_interleave(4)[:, None]
+        qpc_by = qpc.repeat_interleave(2)[:, None]
+        qpc_rm = qpc[:, None]
+    else:
+        qp_by = _expand(qp_mb.to(I64), 4, 4)
+        qpc_rm = _qpc_of(qp_mb)
+        qpc_by = _expand(qpc_rm, 2, 2)
     pred_y, pred_u, pred_v = pred_y.to(I64), pred_u.to(I64), pred_v.to(I64)
     if mv is None:
         mv = torch.zeros((R, M, 2), dtype=I64, device=dev)
@@ -894,8 +944,10 @@ def _mb_encode(name, plain, y, u, v, qp, send, rows_per_stripe,
 
 def _mb_encode_p(name, plain, y, u, v, qp, send_rows, pred_y, pred_u,
                  pred_v, mv, ref_y, ref_u, ref_v, cdiv: int = 2,
-                 n_blocks: int = N_BLOCKS):
-    """A P entry (K2-P, K15), as :func:`_mb_encode`."""
+                 n_blocks: int = N_BLOCKS, qp_mb=None):
+    """A P entry (K2-P, K15), as :func:`_mb_encode`. A ``qp_mb`` plane
+    (the 4:2:0 entry only) goes to ``plain`` and to the C entry
+    ``<name>_qp``."""
     H, W = y.shape
     dev = y.device
     R, M = H // 16, W // 16
@@ -907,12 +959,16 @@ def _mb_encode_p(name, plain, y, u, v, qp, send_rows, pred_y, pred_u,
     _check(send_rows, "send_rows", torch.int32, (R,), dev)
     if mv is not None:
         _check(mv, "mv", torch.int32, (R, M, 2), dev)
+    roi = () if qp_mb is None else (qp_mb,)
+    if roi:
+        _check(qp_mb, "qp_mb", torch.int32, (R, M), dev)
     if _on_cpu(y):
         return plain(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv,
-                     ref_y, ref_u, ref_v)
+                     ref_y, ref_u, ref_v, *roi)
     lv, cbp, hdr_pay, hdr_nb = _mb_outputs(R, M, dev, n_blocks)
-    _cuda.launch(name, y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv,
-                 ref_y, ref_u, ref_v, lv, cbp, hdr_pay, hdr_nb, R, M)
+    _cuda.launch(name + "_qp" if roi else name, y, u, v, qp, send_rows,
+                 pred_y, pred_u, pred_v, mv, *roi, ref_y, ref_u, ref_v, lv,
+                 cbp, hdr_pay, hdr_nb, R, M)
     return lv, cbp, hdr_pay, hdr_nb
 
 
@@ -932,13 +988,14 @@ def mb_encode_i(y, u, v, qp, send, rows_per_stripe: int, ref_y, ref_u,
 
 
 def mb_encode_p(y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, ref_y,
-                ref_u, ref_v):
-    """K2, P entry (csrc/mb_encode.cu:mb_encode_p) for CUDA tensors, else
-    :func:`mb_encode_p_plain`; same contract. ``send_rows`` (R,) int32 is
-    the per-MB-row gate of the reference advance."""
+                ref_u, ref_v, qp_mb=None):
+    """K2, P entry (csrc/mb_encode.cu:mb_encode_p, or mb_encode_p_qp with
+    a ``qp_mb`` plane) for CUDA tensors, else :func:`mb_encode_p_plain`;
+    same contract. ``send_rows`` (R,) int32 is the per-MB-row gate of the
+    reference advance."""
     return _mb_encode_p("mb_encode_p", mb_encode_p_plain, y, u, v, qp,
                         send_rows, pred_y, pred_u, pred_v, mv, ref_y, ref_u,
-                        ref_v)
+                        ref_v, qp_mb=qp_mb)
 
 
 # ---------------------------------------------------------------------------
@@ -1110,6 +1167,49 @@ def _assemble_p_frame(R, M, w_cap, e_cap, qp, fn, header_pay, header_nb,
                      torch.stack([tr_pay, one]), torch.stack([tr_nb, one]))
 
 
+# ---------------------------------------------------------------------------
+# K18: ROI QP's mb_qp_delta carry chain (K2-P's header slot 5, before K4)
+# ---------------------------------------------------------------------------
+
+def mb_qp_delta_plain(hdr_pay, hdr_nb, qp_mb, qp_rows):
+    """K2-P's header events (R, M, 6), updated in place and returned:
+    every MB whose mb_qp_delta slot carries bits (coded with cbp != 0,
+    §7.3.5) gets se(qp_mb - qp_prev), ``qp_prev`` being the QP of the
+    previous such MB of its row, or the row's slice QP for the first
+    (each row is a slice, so the chain restarts per row). The previous
+    carrier by the running max the skip runs use (the reference's
+    ``_assemble_p_frame`` with ``qp_mb``)."""
+    R, M = qp_mb.shape
+    dev = qp_mb.device
+    gate = hdr_nb[..., 5] > 0
+    idx = torch.arange(M, dtype=I64, device=dev)[None, :].expand(R, M)
+    inclusive = torch.cummax(torch.where(gate, idx, -1), 1).values
+    prev = torch.cat([torch.full((R, 1), -1, dtype=I64, device=dev),
+                      inclusive[:, :-1]], 1)
+    q = qp_mb.to(I64)
+    qp_prev = torch.where(prev >= 0, torch.gather(q, 1, prev.clamp(min=0)),
+                          qp_rows.to(I64)[:, None])
+    pay, nb = _se_event(q - qp_prev)
+    hdr_pay[..., 5] = torch.where(gate, pay, 0).to(torch.int32)
+    hdr_nb[..., 5] = torch.where(gate, nb, 0).to(torch.int32)
+    return hdr_pay, hdr_nb
+
+
+def mb_qp_delta(hdr_pay, hdr_nb, qp_mb, qp_rows):
+    """K18 (csrc/mb_qp_delta.cu) for CUDA tensors, else
+    :func:`mb_qp_delta_plain`; same contract (in place)."""
+    R, M = qp_mb.shape
+    dev = qp_mb.device
+    _check(hdr_pay, "hdr_pay", torch.int32, (R, M, HDR_SLOTS), dev)
+    _check(hdr_nb, "hdr_nb", torch.int32, (R, M, HDR_SLOTS), dev)
+    _check(qp_mb, "qp_mb", torch.int32, (R, M), dev)
+    _check(qp_rows, "qp_rows", torch.int32, (R,), dev)
+    if _on_cpu(qp_mb):
+        return mb_qp_delta_plain(hdr_pay, hdr_nb, qp_mb, qp_rows)
+    _cuda.launch("mb_qp_delta", hdr_pay, hdr_nb, qp_mb, qp_rows, R, M)
+    return hdr_pay, hdr_nb
+
+
 class StreamOut(NamedTuple):
     words: torch.Tensor       # (R, w_cap) int32, uint32 bit patterns
     total_bits: torch.Tensor  # (R,) int32
@@ -1240,7 +1340,9 @@ def pack_stream_seats(hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay,
 
 class StepOps(NamedTuple):
     """The kernels of the main path, or their plain versions (this
-    module's for 4:2:0; ops/h264_planes444.py holds the 4:4:4 sets)."""
+    module's for 4:2:0; ops/h264_planes444.py holds the 4:4:4 sets).
+    ``roi_qp_plane`` and ``mb_qp_delta`` run on the 4:2:0 band path with
+    ROI QP only."""
     csc_damage: object
     mb_encode_i: object
     mb_encode_p: object
@@ -1248,13 +1350,17 @@ class StepOps(NamedTuple):
     pack_stream: object
     motion_select: object
     row_damage_probe: object
+    roi_qp_plane: object
+    mb_qp_delta: object
 
 
 KERNEL_OPS = StepOps(csc420_damage, mb_encode_i, mb_encode_p, cavlc_events,
-                     pack_stream, motion_select, row_damage_probe)
+                     pack_stream, motion_select, row_damage_probe,
+                     roi_qp_plane, mb_qp_delta)
 PLAIN_OPS = StepOps(csc420_damage_plain, mb_encode_i_plain,
                     mb_encode_p_plain, cavlc_events_plain, pack_stream_plain,
-                    motion_select_plain, row_damage_probe_plain)
+                    motion_select_plain, row_damage_probe_plain,
+                    roi_qp_plane_plain, mb_qp_delta_plain)
 #: the multi-seat step's sets (parallel/h264_seats.py): K4's seat entry,
 #: which takes ``n_seats``, in place of the single-frame one
 SEAT_KERNEL_OPS = KERNEL_OPS._replace(pack_stream=pack_stream_seats)
@@ -1262,17 +1368,25 @@ SEAT_PLAIN_OPS = PLAIN_OPS._replace(pack_stream=pack_stream_seats_plain)
 
 
 def p_rows(ops: StepOps, y, u, v, qp, send_rows, ref, candidates, win: int,
-           scratch=None):
+           scratch=None, qp_mb=None):
     """K5 (when ``candidates`` is given) then K2-P over planes of whole MB
     rows; the recon lands in ``ref`` for the rows with ``send_rows`` set.
     The prediction is complete in ``scratch`` (or fresh planes) before K2
-    rewrites ``ref``. -> K2-P's (lv, cbp, hdr_pay, hdr_nb)."""
+    rewrites ``ref``. With a ``qp_mb`` plane (ROI QP, 4:2:0) K2-P codes
+    each MB at its QP and K18 writes the mb_qp_delta chain into its
+    headers; K5 keeps the row ``qp`` for its vector cost, as the
+    reference does. -> K2-P's (lv, cbp, hdr_pay, hdr_nb)."""
     if candidates:
         *pred, mv = ops.motion_select(y, *ref, qp, candidates, win,
                                       out=scratch)
     else:
         pred, mv = ref, None
-    return ops.mb_encode_p(y, u, v, qp, send_rows, *pred, mv, *ref)
+    if qp_mb is None:
+        return ops.mb_encode_p(y, u, v, qp, send_rows, *pred, mv, *ref)
+    lv, cbp, hdr_pay, hdr_nb = ops.mb_encode_p(
+        y, u, v, qp, send_rows, *pred, mv, *ref, qp_mb=qp_mb)
+    ops.mb_qp_delta(hdr_pay, hdr_nb, qp_mb, qp)
+    return lv, cbp, hdr_pay, hdr_nb
 
 
 def _as_tensor(x, device):
@@ -1325,21 +1439,26 @@ def h264_encode_yuv(yf, uf, vf, qp, header_pay, header_nb, e_cap: int,
 def h264_encode_p_yuv(yf, uf, vf, ref_y, ref_u, ref_v, qp, header_pay,
                       header_nb, frame_num, e_cap: int, w_cap: int,
                       candidates: tuple = ((0, 0),),
-                      stripe_rows: int | None = None, device=None):
+                      stripe_rows: int | None = None, qp_mb=None,
+                      device=None):
     """The reference's plane-layout P encoder, through the main path's
     kernels: K5 when ``candidates`` holds more than the zero vector (its
-    windows are ``16 * (stripe_rows or R)`` rows), then K2 -> K3 -> K4.
-    The reference planes are copied, not updated. ``device`` as for
-    :func:`h264_encode_yuv`."""
+    windows are ``16 * (stripe_rows or R)`` rows), then K2 -> K3 -> K4,
+    with K18 after K2 when a ``qp_mb`` (R, M) per-MB QP plane (ROI QP)
+    is given. The reference planes are copied, not updated. ``device``
+    as for :func:`h264_encode_yuv`."""
     (y, u, v), qp, hp, hn, fn = _frame_args(yf, uf, vf, qp, header_pay,
                                             header_nb, frame_num, device)
     R = y.shape[0] // 16
     send = torch.ones((R,), dtype=torch.int32, device=y.device)
     ref = [_as_tensor(p, y.device).to(torch.uint8).clone()
            for p in (ref_y, ref_u, ref_v)]
+    if qp_mb is not None:
+        qp_mb = _as_tensor(qp_mb, y.device).to(torch.int32).contiguous()
     lv, cbp, hdr_pay, hdr_nb = p_rows(
         KERNEL_OPS, y, u, v, qp, send, ref,
-        candidates if len(candidates) > 1 else None, 16 * (stripe_rows or R))
+        candidates if len(candidates) > 1 else None, 16 * (stripe_rows or R),
+        qp_mb=qp_mb)
     ev_pay, ev_nb = cavlc_events(lv, cbp, False)
     st = pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, hp, hn, fn, qp, False,
                      e_cap, w_cap, R * w_cap * 4)

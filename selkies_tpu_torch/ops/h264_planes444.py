@@ -68,7 +68,9 @@ from .h264_planes import (I64, _SCAN_RASTER, _ZZ_IJ, StepOps, _as_tensor,
                           _plane_to_rm, _qpc_of, _quant_dc_e, _quant_plane,
                           _t, _tc_gate_plane,
                           cavlc_events_planes, fwd4_planes, inv4_planes,
-                          pack_stream, pack_stream_plain, row_damage_probe,
+                          mb_qp_delta, mb_qp_delta_plain, pack_stream,
+                          pack_stream_plain, roi_qp_plane,
+                          roi_qp_plane_plain, row_damage_probe,
                           row_damage_probe_plain)
 from .h264_transform import _POS_CLS, ZIGZAG4
 
@@ -369,13 +371,16 @@ def cavlc_events444(lv, cbp, intra: bool):
 # the 4:4:4 step ops and frame-level entry points
 # ---------------------------------------------------------------------------
 
+#: ROI QP is ignored at 4:4:4 (as in the reference): the sets name K17
+#: and K18, which the 4:4:4 steps never call
 KERNEL_OPS_444 = StepOps(csc444_damage, mb_encode_i444, mb_encode_p444,
                          cavlc_events444, pack_stream, motion_select444,
-                         row_damage_probe)
+                         row_damage_probe, roi_qp_plane, mb_qp_delta)
 PLAIN_OPS_444 = StepOps(csc444_damage_plain, mb_encode_i444_plain,
                         mb_encode_p444_plain, cavlc_events444_plain,
                         pack_stream_plain, motion_select444_plain,
-                        row_damage_probe_plain)
+                        row_damage_probe_plain, roi_qp_plane_plain,
+                        mb_qp_delta_plain)
 
 
 def h264_encode_yuv444(yf, uf, vf, qp, header_pay, header_nb, e_cap: int,

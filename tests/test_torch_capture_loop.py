@@ -193,12 +193,16 @@ def test_hung_source_is_abandoned_not_joined_forever(monkeypatch):
     monkeypatch.setattr(T_cap, "make_source", lambda *a, **k: Hung())
     cap = ScreenCapture("synthetic", device="cpu")
     cap.join_timeout_s = 0.2
+    n_threads = threading.active_count()
     try:
         cap.start_capture(lambda c: None, CaptureSettings(**SMALL))
         cap.stop_capture()
         assert cap.abandoned_threads == 1
     finally:
         release.set()
+        # the abandoned thread ends once its source returns: leave none
+        # running for the tests after this one
+        _wait(lambda: threading.active_count() <= n_threads)
 
 
 def test_screenshot_is_the_visible_crop_of_a_captured_frame():

@@ -12,8 +12,10 @@ category caps, and word and byte buffers too small; for the H.264 4:4:4
 kernels K13-K16 and K5's 4:4:4 entry the same cases, the CSC over all
 2^24 byte triples and the fullcolor session; for the seat entries of K4,
 K9 and K10 one to four seats, one of whose rows overflows and spills,
-and both multi-seat encoders through a one-seat overflow) and must match
-it exactly, overflow flags included. Tolerance: 0.
+and both multi-seat encoders through a one-seat overflow; for ROI QP's
+K17 and K18 and K2-P's per-MB-QP entry random frames and planes at
+1080p with QPs 0..51, an unaligned K17 input and the ROI session) and
+must match it exactly, overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -800,3 +802,134 @@ def test_multiseat_encoder_on_the_card(dev, mode):
                                getattr(encs[1], key)), key
         assert (encs[0]._force_after_drop == encs[1]._force_after_drop).all()
     assert encs[0]._cap_gen == 1, "the noise seat did not overflow"
+
+
+# ------------------------------------------- ROI QP: K17, K18, K2-P's plane
+def _roi_frames(dev, H, W, seed):
+    """A random frame and a copy with random MBs, single bytes and the
+    last MB changed."""
+    rng = np.random.default_rng(seed)
+    prev = torch.as_tensor(rng.integers(0, 256, (H, W, 3), dtype=np.uint8),
+                           device=dev)
+    f = prev.clone()
+    R, M = H // 16, W // 16
+    for r, m in zip(*np.nonzero(rng.random((R, M)) < 0.3)):
+        f[16 * r + 3, 16 * m + 7, 1] ^= 4
+    f[-1, -1, 2] ^= 1
+    f[0, 0, 0] ^= 1
+    return f, prev
+
+
+@pytest.mark.parametrize("bias", [0, 4, 12])
+def test_roi_qp_plane_at_1080p(dev, bias):
+    H, W = 1088, 1920
+    f, prev = _roi_frames(dev, H, W, bias)
+    rng = np.random.default_rng(bias + 1)
+    qp = torch.as_tensor(rng.integers(0, 52, H // 16).astype(np.int32),
+                         device=dev)
+    _same([HP.roi_qp_plane(f, prev, qp, bias)],
+          [HP.roi_qp_plane_plain(f, prev, qp, bias)])
+    # a band 16 rows into the frame, and a view 3 bytes in (byte loop)
+    _same([HP.roi_qp_plane(f[16:80], prev[16:80], qp[:4], bias)],
+          [HP.roi_qp_plane_plain(f[16:80], prev[16:80], qp[:4], bias)])
+    a = f.reshape(-1)[3:3 + 64 * W * 3].reshape(64, W, 3)
+    b = prev.reshape(-1)[3:3 + 64 * W * 3].reshape(64, W, 3)
+    _same([HP.roi_qp_plane(a, b, qp[:4], bias)],
+          [HP.roi_qp_plane_plain(a, b, qp[:4], bias)])
+
+
+def _qp_planes(dev, rng, R, M):
+    qp = torch.as_tensor(rng.integers(0, 52, R).astype(np.int32), device=dev)
+    qp_mb = torch.as_tensor(rng.integers(0, 52, (R, M)).astype(np.int32),
+                            device=dev)
+    return qp, qp_mb
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_mb_encode_p_with_qp_mb_at_1080p(dev, motion):
+    """K2-P's per-MB-QP entry on noise against a moved reference, QPs
+    0..51 per MB, half the rows sent; then K18 on its headers."""
+    H, W = 1088, 1920
+    R, M = H // 16, W // 16
+    rng = np.random.default_rng(7 + motion)
+    f0, f1 = (torch.as_tensor(rng.integers(0, 256, (H, W, 3),
+                                           dtype=np.uint8), device=dev)
+              for _ in range(2))
+    f1[:, : W // 2] = torch.roll(f0, 3, 0)[:, : W // 2]
+    ref = list(HP.csc420_damage_plain(f0, f0.clone(), 17)[:3])
+    planes = HP.csc420_damage_plain(f1, f0.clone(), 17)[:3]
+    qp, qp_mb = _qp_planes(dev, rng, R, M)
+    send = (torch.arange(R, device=dev) % 2).to(torch.int32)
+    if motion:
+        *pred, mv = TE.motion_select_plain(planes[0], *ref, qp,
+                                           TE.scroll_candidates(24, 8), 64)
+    else:
+        pred, mv = ref, None
+    outs = []
+    for fn in (HP.mb_encode_p, HP.mb_encode_p_plain):
+        r = [p.clone() for p in ref]
+        pr = [p.clone() for p in pred] if motion else r
+        outs.append(list(fn(*planes, qp, send, *pr, mv, *r, qp_mb=qp_mb))
+                    + r)
+    _same(outs[0], outs[1])
+    hp, hn = outs[0][2], outs[0][3]
+    kd = HP.mb_qp_delta(hp.clone(), hn.clone(), qp_mb, qp)
+    pd = HP.mb_qp_delta_plain(hp.clone(), hn.clone(), qp_mb, qp)
+    _same(kd, pd)
+
+
+@pytest.mark.parametrize("M", [1, 31, 32, 33, 120])
+def test_mb_qp_delta(dev, M):
+    """Random gates (motion-only MBs included) and QPs 0..51 on rows of
+    1..120 MBs: chunks of 32 and the carry between them."""
+    R = 68
+    rng = np.random.default_rng(M)
+    hp = torch.as_tensor(rng.integers(0, 99, (R, M, 6)).astype(np.int32),
+                         device=dev)
+    hn = torch.as_tensor(rng.integers(0, 9, (R, M, 6)).astype(np.int32),
+                         device=dev)
+    hn[..., 5] = torch.as_tensor((rng.random((R, M)) < 0.4).astype(np.int32),
+                                 device=dev)
+    hp[..., 5] = hn[..., 5]
+    qp, qp_mb = _qp_planes(dev, rng, R, M)
+    _same(HP.mb_qp_delta(hp.clone(), hn.clone(), qp_mb, qp),
+          HP.mb_qp_delta_plain(hp.clone(), hn.clone(), qp_mb, qp))
+
+
+@pytest.mark.parametrize("bias", [4, 12])
+def test_roi_session_on_the_card(dev, bias):
+    """The ROI QP band session on the card against the same session on
+    its plain versions (on the card): scrolls, typing, idle and
+    paint-over bands at qp 12 (so bias 12 meets the lower clip)."""
+    from selkies_tpu_torch.engine.h264_encoder import H264EncoderSession
+    from selkies_tpu_torch.engine.types import CaptureSettings
+    from selkies_tpu_torch.ops import _cuda
+    kw = dict(capture_width=128, capture_height=64, stripe_height=32,
+              output_mode="h264", h264_motion_vrange=4, h264_motion_hrange=2,
+              h264_partial_encode=True, h264_roi_qp=True,
+              h264_roi_qp_bias=bias, paint_over_delay_frames=2)
+    kern = H264EncoderSession(CaptureSettings(**kw))
+    plain = H264EncoderSession(CaptureSettings(**kw))
+    plain._ops = HP.PLAIN_OPS
+    plain._rebuild_steps()
+    for sess in (kern, plain):
+        sess.set_qp(12)
+    f0, _ = _frames(dev, 64, 128)
+    typed = torch.roll(f0, 5, 0)
+    typed[40:48, 8:40] = 20
+    before = dict(_cuda.LAUNCHES)
+    n_band = 0
+    for frame in (f0, torch.roll(f0, 5, 0), typed, typed, typed, typed, f0):
+        out = kern.encode(frame)
+        n_band += out.get("band") is not None
+        a = kern.finalize(out)
+        b = plain.finalize(plain.encode(frame))
+        assert [(c.stripe_y, c.is_idr, c.payload) for c in a] \
+            == [(c.stripe_y, c.is_idr, c.payload) for c in b]
+        for k in ("_ref_y", "_ref_u", "_ref_v", "_prev", "_sent", "_fnum"):
+            assert torch.equal(getattr(kern, k), getattr(plain, k)), k
+    n = {k: _cuda.LAUNCHES[k] - before[k] for k in
+         ("roi_qp_plane", "mb_qp_delta", "mb_encode_p_qp", "mb_encode_p")}
+    assert n_band > 0 and n == {"roi_qp_plane": n_band,
+                                "mb_qp_delta": n_band,
+                                "mb_encode_p_qp": n_band, "mb_encode_p": 0}

@@ -178,7 +178,6 @@ def test_loop_entry_points_default_to_the_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"h264_roi_qp": True}, "A16"),
     ({"stripe_devices": 2}, "A11"),
 ])
 def test_settings_outside_the_slice_raise(change, item):
@@ -202,12 +201,14 @@ def _encode_two_frames(settings):
 @pytest.mark.parametrize("change", [{"h264_motion_vrange": 4},
                                     {"h264_partial_encode": True},
                                     {"watermark_path": "/nonexistent.png"},
-                                    {"fullcolor": True}])
+                                    {"fullcolor": True},
+                                    {"h264_roi_qp": True,
+                                     "h264_partial_encode": True}])
 def test_ported_settings_build_and_encode(change):
     """Motion search (ROADMAP A7), the band path (A8), the watermark
-    (A5; an unreadable PNG degrades to none, as in the reference) and
-    4:4:4 (A10), which used to raise, now build and encode a P frame on
-    the CPU."""
+    (A5; an unreadable PNG degrades to none, as in the reference), 4:4:4
+    (A10) and ROI QP on the band path (A16), which used to raise, now
+    build and encode a P frame on the CPU."""
     kw = dict(capture_width=64, capture_height=64, stripe_height=32,
               output_mode="h264", h264_motion_vrange=0,
               h264_motion_hrange=2, h264_partial_encode=False)

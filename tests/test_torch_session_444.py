@@ -320,16 +320,18 @@ def test_full_dirty_band_equals_the_stock_p_step_with_motion():
 
 def test_roi_qp_is_ignored_at_4_4_4():
     """``h264_roi_qp`` with ``fullcolor`` builds (the reference gates ROI
-    on ``not fullcolor``) and changes nothing; alone it still raises."""
+    on ``not fullcolor``) and changes nothing; at 4:2:0 it is on (ROI QP
+    is ported: tests/test_torch_roi.py holds it against the reference)."""
     with_roi = H264EncoderSession(CaptureSettings(**DEFAULT), device="cpu")
     without = H264EncoderSession(CaptureSettings(
         **dict(DEFAULT, h264_roi_qp=False)), device="cpu")
+    assert with_roi._roi_qp_bias == 0
     for _, frame, force in _default_script()[:6]:
         assert _astuples(with_roi.finalize(with_roi.encode(frame, force))) \
             == _astuples(without.finalize(without.encode(frame, force)))
-    with pytest.raises(NotImplementedError, match="A16"):
-        H264EncoderSession(CaptureSettings(**dict(DEFAULT, fullcolor=False)),
-                           device="cpu")
+    s420 = CaptureSettings(**dict(DEFAULT, fullcolor=False))
+    assert H264EncoderSession(s420, device="cpu")._roi_qp_bias \
+        == s420.h264_roi_qp_bias > 0
 
 
 # ----------------------------------------------- the bands scenario, ported
