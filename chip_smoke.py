@@ -9,7 +9,7 @@ versions on the same card, requiring equal chunks and equal state frame
 by frame, then the capture loop for both codecs, then both H.264
 sequences and the H.264 capture loop again at 4:4:4, then four seats of
 each codec through the multi-seat encoders and their capture loop, then
-the default H.264 sequence again with ROI QP:
+the default H.264 sequence again with ROI QP, then split-frame H.264:
 
 1. the stock configuration (zero-MV P frames, no band path): IDR,
    damaged and idle P frames, paint-over, a forced IDR and one overflow
@@ -63,7 +63,22 @@ the default H.264 sequence again with ROI QP:
    lower clip to QP 8 bites, kernels against plain; every band frame
    must launch K17 ``roi_qp_plane``, K2-P's per-MB-QP entry and K18
    ``mb_qp_delta`` once each (and K2-P's row-QP entry never), and the
-   other six paths none of them.
+   other six paths none of them;
+8. stripes (split-frame, ``stripe_devices``), shards on ``cuda:0``: the
+   sharded frame entries (I at 2 and 4 shards and 3 shards padded over
+   the 68 MB rows, P with 17-row windows and across the halo with the
+   whole frame as the window, 4:4:4 I and halo P; 57 candidates), each
+   equal to the unsharded frame entry and to its plain run, every halo
+   frame launching K20 ``halo_bands`` three times and K19
+   ``motion_select_halo`` once; then ``StripeShardedH264Session`` at
+   272-row stripes (4 stripes, 4 shards) over the stock sequence of 1,
+   its overflow episode cutting each shard's buffer, and the default
+   sequence of 2, at 4:2:0 and 4:4:4, read by ``finalize`` and
+   ``finalize_stream`` in turn, every frame launching each kernel of its
+   step once (K4 through its seat entry), equal to its plain run and
+   to ``H264EncoderSession`` chunk for chunk; then ``stripe_devices=4``
+   with no device list, which resolves to one shard on one card and
+   must equal path 2, band path included.
 
 Each run resets the launch counters first and requires every kernel of
 its path to have launched. Then each kernel is held against its plain
@@ -89,6 +104,7 @@ import warnings
 import numpy as np
 import torch
 
+from selkies_tpu_torch.codecs import h264 as hcodec
 from selkies_tpu_torch.codecs import jpeg as jtab
 from selkies_tpu_torch.engine import ScreenCapture
 from selkies_tpu_torch.engine import encoder as port_encoder
@@ -97,7 +113,9 @@ from selkies_tpu_torch.engine import state as port_state
 from selkies_tpu_torch.engine.encoder import (JpegEncoderSession,
                                               jpeg_buffer_caps)
 from selkies_tpu_torch.engine.h264_encoder import (H264EncoderSession,
-                                                   h264_buffer_caps)
+                                                   StripeShardedH264Session,
+                                                   h264_buffer_caps,
+                                                   plan_h264_grid)
 from selkies_tpu_torch.engine.types import CaptureSettings
 from selkies_tpu_torch.engine.watermark import Watermark
 from selkies_tpu_torch.ops import _cuda
@@ -116,6 +134,8 @@ from selkies_tpu_torch.ops.h264_encode import (motion_select,
 from selkies_tpu_torch.parallel import (MultiSeatCapture, MultiSeatEncoder,
                                         MultiSeatH264Encoder,
                                         synthetic_seat_frames)
+from selkies_tpu_torch.parallel import stripes as ST
+from selkies_tpu_torch.server import metrics
 from selkies_tpu_torch.trace import tracer
 
 SEED = 20261017
@@ -173,6 +193,15 @@ KERNELS = {
                        "selkies_tpu/ops/h264_planes.py:875"),
     "mb_qp_delta": ("selkies_tpu_torch/csrc/mb_qp_delta.cu",
                     "selkies_tpu/ops/h264_planes.py:1089"),
+    "motion_select_halo": ("selkies_tpu_torch/csrc/motion_select.cu",
+                           "selkies_tpu/parallel/stripes.py:234"),
+    "motion_select_halo444": ("selkies_tpu_torch/csrc/motion_select.cu",
+                              "selkies_tpu/parallel/stripes.py:234"),
+    "halo_bands": ("selkies_tpu_torch/csrc/halo_bands.cu",
+                   "selkies_tpu/parallel/stripes.py:218"),
+    # K4's seat entry at 4:4:4's slot counts (the split frame's shards)
+    "pack_stream_seats444": ("selkies_tpu_torch/csrc/pack_stream.cu",
+                             "selkies_tpu/parallel/stripes.py:156"),
 }
 #: kernels each path launches
 STOCK_PATH = ("csc420_damage", "mb_encode_i", "mb_encode_p", "cavlc_events",
@@ -203,6 +232,16 @@ SEATS_PATH = tuple(dict.fromkeys(SEATS_JPEG_TICK + SEATS_H264_I
 ROI_KERNELS = ("roi_qp_plane", "mb_qp_delta", "mb_encode_p_qp")
 ROI_PATH = tuple(k for k in DEFAULT_PATH if k != "mb_encode_p") + ROI_KERNELS
 ROI_RUNS = ((4, None), (12, 12))  # (bias, set_qp) of the seventh path
+#: the split frame's kernels (eighth path), by chroma format: the stock
+#: step's with K4's seat entry, and on halo frames K20 and K19
+STRIPES_PATH = ("csc420_damage", "mb_encode_i", "mb_encode_p",
+                "cavlc_events", "pack_stream_seats", "motion_select",
+                "halo_bands", "motion_select_halo")
+STRIPES444_PATH = ("csc444_damage", "mb_encode_i444", "mb_encode_p444",
+                   "cavlc_events444", "pack_stream_seats", "motion_select444",
+                   "halo_bands", "motion_select_halo444")
+STRIPE_SHARDS = 4                # shards of the eighth path's session
+STRIPE_HEIGHT = 272              # its stripes: 4 over the 1088-row grid
 SEATS = 4                        # seats of the sixth path
 SEAT_COUNTS = (1, 2, 4, 8)       # seat counts of the launch and time rows
 NOISY_SEAT = 2                   # the seat whose buffer the script overflows
@@ -284,27 +323,44 @@ def snapshot(sess) -> dict:
     return snap
 
 
-def run_sequence(sess: H264EncoderSession, frames) -> list:
+def finish(sess, out, i: int, stream: bool) -> list:
+    """Frame ``i``'s chunks: ``finalize``, or with ``stream`` every other
+    frame through ``finalize_stream`` (byte-identical)."""
+    if stream and i % 2:
+        return list(sess.finalize_stream(out))
+    return sess.finalize(out)
+
+
+def shrunk_cap(chunks) -> int:
+    """Two thirds of an IDR's bytes: a byte buffer it overflows and whose
+    double holds it."""
+    return sum(len(c.payload) for c in chunks) * 2 // 3
+
+
+def run_sequence(sess: H264EncoderSession, frames, shrink=shrunk_cap,
+                 stream: bool = False) -> list:
     """IDR -> damaged P -> idle -> paint-over -> forced IDR -> P ->
-    overflow episode (out_cap shrunk below an IDR) -> forced IDR -> P.
-    -> per frame (chunks, state snapshot)."""
+    overflow episode (out_cap shrunk to ``shrink`` of the forced IDR's
+    chunks) -> forced IDR -> P; with ``stream`` every other frame is
+    read by ``finalize_stream``. -> per frame (chunks, state snapshot)."""
     f0, f1, f2, f3 = frames
     script = [(f0, False), (f1, False), (f2, False), (f2, False),
               (f2, False), (f2, False), (f2, False), (f2, True), (f3, False)]
     log = []
 
     def step(frame, force):
-        chunks = sess.finalize(sess.encode(frame, force=force))
+        chunks = finish(sess, sess.encode(frame, force=force), len(log),
+                        stream)
         log.append((chunks, snapshot(sess)))
         return chunks
 
-    idr_bytes = 0
+    idr_chunks = []
     for i, (frame, force) in enumerate(script):
         chunks = step(frame, force)
         if i == 7:
-            idr_bytes = sum(len(c.payload) for c in chunks)
+            idr_chunks = chunks
     # overflow episode: shrink the byte buffer below the forced IDR
-    sess._out_cap = idr_bytes * 2 // 3
+    sess._out_cap = shrink(idr_chunks)
     sess._rebuild_steps()
     gen = sess._cap_gen
     check(step(f2, True) == [], "shrunk out_cap did not overflow")
@@ -387,15 +443,17 @@ def typing_rows(H: int) -> slice:
     return slice(top, top + 12)
 
 
-def run_default_sequence(sess, seq, check_idle: bool = False) -> list:
+def run_default_sequence(sess, seq, check_idle: bool = False,
+                         stream: bool = False) -> list:
     """-> per frame (chunks, state snapshot, band, last_band_rows). With
     ``check_idle`` the idle frames must launch the probe and nothing else
-    (the launch counters of the kernel wrappers)."""
+    (the launch counters of the kernel wrappers); with ``stream`` every
+    other frame is read by ``finalize_stream``."""
     log = []
     for name, frame, force in seq:
         before = dict(_cuda.LAUNCHES)
         out = sess.encode(frame, force=force)
-        chunks = sess.finalize(out)
+        chunks = finish(sess, out, len(log), stream)
         if check_idle and name == "idle":
             delta = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
                      if v != before[k]}
@@ -1947,6 +2005,355 @@ def seat_kernel_checks(dev, h264_caps, jpeg_caps) -> dict:
     return out
 
 
+# ----------------------------------------------------------- stripes path
+def stripe_planes(frame, fullcolor: bool):
+    """The Y/U/V planes of a frame (through the CSC kernel)."""
+    csc = H4.csc444_damage if fullcolor else HP.csc420_damage
+    return list(csc(frame, torch.zeros_like(frame), 1)[:3])
+
+
+def stripe_frame_cases(frames, dev, fullcolor: bool) -> list:
+    """The eighth path's frame cases at 1920x1088 (68 MB rows), shards on
+    ``dev``: (name, sharded() -> (out, recon), unsharded() -> (out,
+    recon), the launches of one sharded call). 4:2:0: I at 2 and 4 shards
+    and 3 shards padded over 68 rows, P with whole windows a shard (4
+    shards, 17-row windows) and across the halo (4 shards, the whole frame
+    as the window, so halo_y 24 and halo_c 13); 4:4:4: I and halo P. The P
+    frame is the I frame scrolled by 7 rows, which moves content across
+    every seam, coded against the I recon, with per-row QPs."""
+    cands = scroll_candidates(24, 8)
+    g = plan_h264_grid(CaptureSettings(capture_width=WIDTH,
+                                       capture_height=HEIGHT))
+    R, M = g.height // 16, g.mb_w
+    e_cap, w_cap, _ = h264_buffer_caps(g, fullcolor)
+    hdr = hcodec.slice_header_events(M, R)
+    p_hdr = hcodec.p_slice_header_events(M, R)
+    qp = np.random.default_rng(SEED + 11).integers(18, 40, R).astype(
+        np.int32)
+    f0 = torch.as_tensor(frames[0]).to(dev)
+    planes = stripe_planes(f0, fullcolor)
+    cur = stripe_planes(torch.roll(f0, -7, 0), fullcolor)
+    enc_i = H4.h264_encode_yuv444 if fullcolor else HP.h264_encode_yuv
+    enc_p = H4.h264_encode_p_yuv444 if fullcolor else HP.h264_encode_p_yuv
+    # the P frames' reference: the unsharded I recon (not counted)
+    rec = enc_i(*planes, qp, *hdr, e_cap, w_cap, want_recon=True)[1]
+    sfx = "444" if fullcolor else ""
+    k_i = {f"mb_encode_i{sfx}": 1, f"cavlc_events{sfx}": 1,
+           "pack_stream_seats": 1}
+    k_p = {f"mb_encode_p{sfx}": 1, f"cavlc_events{sfx}": 1,
+           "pack_stream_seats": 1}
+
+    def i_case(name, mesh):
+        return (name, lambda: ST.h264_encode_sharded(
+            *planes, qp, *hdr, e_cap, w_cap, mesh, fullcolor=fullcolor,
+            want_recon=True),
+            lambda: enc_i(*planes, qp, *hdr, e_cap, w_cap, want_recon=True),
+            k_i)
+
+    def p_case(name, sr, want):
+        mesh = ST.stripe_mesh(R, [dev] * 4)
+        return (name, lambda: ST.h264_encode_p_sharded(
+            *cur, *rec, qp, *p_hdr, 3, e_cap, w_cap, mesh, candidates=cands,
+            stripe_rows=sr, fullcolor=fullcolor),
+            lambda: enc_p(*cur, *rec, qp, *p_hdr, 3, e_cap, w_cap,
+                          candidates=cands, stripe_rows=sr), want)
+    halo = p_case(f"P{sfx} 4 shards, halo ({R}-row windows)", R,
+                  {"halo_bands": 3, f"motion_select_halo{sfx}": 1, **k_p})
+    if fullcolor:
+        return [i_case("I444 4 shards", ST.stripe_mesh(R, [dev] * 4)), halo]
+    return [i_case(f"I {n} shards", ST.stripe_mesh(R, [dev] * n))
+            for n in (2, 4)] + [
+        p_case(f"P 4 shards, {R // 4}-row windows", R // 4,
+               {"motion_select": 1, **k_p}), halo,
+        i_case("I 3 shards padded",
+               ST.StripeMesh(np.array([dev] * 3, object)))]
+
+
+def run_stripe_frames(cases) -> list:
+    """The sharded calls of ``cases``, each launching exactly its kernels
+    once (K20 once a plane). -> (out, recon) per case."""
+    outs = []
+    for name, sharded, _, want in cases:
+        before = dict(_cuda.LAUNCHES)
+        outs.append(sharded())
+        delta = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                 if v != before[k]}
+        check(delta == want, f"stripes {name}: launches {delta}, want {want}")
+    return outs
+
+
+def plain_shards(run):
+    """``run()`` with the sharded frame entries on their plain versions
+    (on the card)."""
+    kern = dict(ST.SHARD_OPS)
+    ST.SHARD_OPS.update(ST.SHARD_PLAIN_OPS)
+    try:
+        return run()
+    finally:
+        ST.SHARD_OPS.update(kern)
+
+
+def check_stripe_frames(cases, outs) -> list:
+    """Each sharded call against the unsharded frame entry (row words,
+    total_bits, overflow, recon) and its plain run. -> names."""
+    for (name, sharded, unsharded, _), (out, rec) in zip(cases, outs):
+        want, want_rec = unsharded()
+        check(torch.equal(out.words, want.words)
+              and torch.equal(out.total_bits, want.total_bits)
+              and bool(out.overflow) == bool(want.overflow)
+              and not bool(out.overflow),
+              f"stripes {name}: rows differ from the unsharded frame")
+        check(all(torch.equal(a, b) for a, b in zip(rec, want_rec)),
+              f"stripes {name}: recon differs from the unsharded frame")
+        p_out, p_rec = plain_shards(sharded)
+        err = max_abs_err([out.words, out.total_bits, *rec],
+                          [p_out.words, p_out.total_bits, *p_rec])
+        check(err == 0, f"stripes {name}: kernels differ from plain "
+              f"(err {err})")
+    return [c[0] for c in cases]
+
+
+def count_frame_launches(sess) -> list:
+    """Wraps ``sess.encode`` to log (intra, launches of the call)."""
+    calls, encode = [], sess.encode
+
+    def counted(frame, force=False):
+        before = dict(_cuda.LAUNCHES)
+        out = encode(frame, force=force)
+        calls.append((out["intra"], {k: v - before[k] for k, v in
+                                     _cuda.LAUNCHES.items()
+                                     if v != before[k]}))
+        return out
+    sess.encode = counted
+    return calls
+
+
+def stripe_sessions(settings, fullcolor: bool, dev):
+    """(sharded kernel session, its plain twin, the unsharded session) at
+    ``STRIPE_HEIGHT`` stripes, 4 shards on the card, all starting at four
+    times the stock byte buffer, so that a shard holds as much as the
+    stock frame buffer (the planned overflow episode is the one
+    overflow)."""
+    s = dataclasses.replace(settings, stripe_height=STRIPE_HEIGHT,
+                            fullcolor=fullcolor)
+    sharded = dataclasses.replace(s, stripe_devices=STRIPE_SHARDS)
+    kern = StripeShardedH264Session(sharded, devices=[dev] * STRIPE_SHARDS)
+    plain = StripeShardedH264Session(sharded,
+                                     devices=[dev] * STRIPE_SHARDS)
+    plain._ops = H4.SEAT_PLAIN_OPS_444 if fullcolor else HP.SEAT_PLAIN_OPS
+    one = H264EncoderSession(s, dev)
+    check(kern.stripe_devices == STRIPE_SHARDS and not kern._partial,
+          f"sharded session resolved {kern.stripe_devices} shards")
+    for sess in (kern, plain, one):
+        sess._out_cap *= 4
+        sess._rebuild_steps()
+    return kern, plain, one
+
+
+def shard_shrunk_cap(chunks) -> int:
+    """The sharded overflow plan: each shard's buffer two thirds of the
+    largest stripe of the IDR (one stripe a shard)."""
+    return STRIPE_SHARDS * (max(len(c.payload) for c in chunks) * 2 // 3)
+
+
+def stripes_path(settings, dsettings, frames, seq, dev) -> dict:
+    """The eighth path (split-frame, ``stripe_devices``): the frame cases
+    of :func:`stripe_frame_cases`, then ``StripeShardedH264Session`` at 4
+    shards over the stock sequence (its overflow episode shrinking each
+    shard's buffer) and the default sequence, at 4:2:0 and 4:4:4, each
+    frame launching each kernel of its step once; every frame is also
+    read by ``finalize_stream`` every other frame. Held, outside the
+    counted runs, against the unsharded entries and sessions and the
+    plain runs. -> {"launches": {"4:2:0", "4:4:4"}, "sessions": chunks
+    a frame and the shard buffers' caps}."""
+    dev_frames = [torch.as_tensor(f).to(dev) for f in frames]
+    res = {"launches": {}, "sessions": {}}
+    for fullcolor in (False, True):
+        tag = "4:4:4" if fullcolor else "4:2:0"
+        mine = stripe_frame_cases(frames, dev, fullcolor)
+        stock = stripe_sessions(settings, fullcolor, dev)
+        default = stripe_sessions(dsettings, fullcolor, dev)
+        calls = {k: count_frame_launches(s[0]) for k, s in
+                 (("stock", stock), ("default", default))}
+
+        def run():                      # one entry a frame
+            return (run_stripe_frames(mine)
+                    + run_sequence(stock[0], dev_frames, shard_shrunk_cap,
+                                   stream=True)
+                    + run_default_sequence(default[0], seq, stream=True))
+        log, lc = run_path(f"stripes {tag}",
+                           STRIPES444_PATH if fullcolor else STRIPES_PATH,
+                           run)
+        outs, slog = log[:len(mine)], log[len(mine):-len(seq)]
+        dlog = log[-len(seq):]
+        res["launches"][tag] = lc
+        sfx = "444" if fullcolor else ""
+        for kind, log in calls.items():
+            for i, (intra, delta) in enumerate(log):
+                want = {f"csc{'444' if fullcolor else '420'}_damage": 1,
+                        f"cavlc_events{sfx}": 1, "pack_stream_seats": 1,
+                        f"mb_encode_{'i' if intra else 'p'}{sfx}": 1}
+                if kind == "default" and not intra:
+                    want[f"motion_select{sfx}"] = 1
+                check(delta == want, f"stripes {tag} {kind} frame {i}: "
+                      f"launches {delta}, want {want}")
+        check_stripe_frames(mine, outs)
+        # the overflow episode: dropped, the shard buffers doubled once
+        check(slog[9][0] == [] and stock[0]._cap_gen == 1
+              and all(c.is_idr for c in slog[10][0]),
+              f"stripes {tag}: the planned overflow episode did not run")
+        check_stream(slog, stock[0])
+        compare_runs(slog, run_sequence(stock[1], dev_frames,
+                                        shard_shrunk_cap))
+        compare_runs(dlog, run_default_sequence(default[1], seq))
+        # against the unsharded session: the stock run in full (its own
+        # overflow plan drops the same frame), the default run in chunks
+        # and the state both paths keep (the unsharded one takes the band
+        # path)
+        compare_runs(slog, run_sequence(stock[2], dev_frames))
+        one = run_default_sequence(default[2], seq)
+        for i, (a, b) in enumerate(zip(dlog, one)):
+            check([dataclasses.astuple(c) for c in a[0]]
+                  == [dataclasses.astuple(c) for c in b[0]],
+                  f"stripes {tag} default frame {i}: chunks differ from "
+                  "the unsharded session's")
+            for k in ("_ref_y", "_ref_u", "_ref_v", "_prev", "_sent",
+                      "_fnum"):
+                check(torch.equal(a[1][k], b[1][k]),
+                      f"stripes {tag} default frame {i}: {k} differs from "
+                      "the unsharded session's")
+        res["sessions"][tag] = {
+            "stock": [len(c) for c, _ in slog],
+            "default": [len(c) for c, *_ in dlog],
+            "local_cap": [stock[0]._out_cap_local, default[0]._out_cap_local]}
+        print(f"stripes {tag}: {len(mine)} frame cases == the unsharded "
+              "frame entries (rows, total_bits, recon) and their plain "
+              f"runs: {json.dumps([c[0] for c in mine])}; the sharded "
+              f"session (4 shards) == its plain run (chunks and state) and "
+              f"== H264EncoderSession chunk for chunk, stock and default "
+              f"sequences, finalize and finalize_stream: "
+              + json.dumps(res["sessions"][tag]))
+    return res
+
+
+def stripes_c1(dsettings, seq, dlog) -> None:
+    """``stripe_devices=4`` with no device list on the one card: the count
+    resolves to 1 (gauged) and the session is the default path's, band
+    path included (``dlog``: path 2's log)."""
+    sess = StripeShardedH264Session(dataclasses.replace(
+        dsettings, stripe_devices=4))
+    gauge = metrics._gauges.get(("selkies_stripe_devices", ()))
+    check(sess.stripe_devices == 1 and gauge == 1.0 and sess._partial,
+          f"one card: {sess.stripe_devices} shards, gauge {gauge}")
+    compare_runs(run_default_sequence(sess, seq), dlog)
+    print("stripes: stripe_devices=4 on the one card resolves to 1 shard "
+          "(gauge 1) and equals the default path, band path included")
+
+
+def stripe_kernel_checks(frames, dev) -> dict:
+    """K19 (both entries) and K20 against their plain versions at the halo
+    frames' 1080p shapes (4 shards of 272 rows, 57 candidates, a
+    whole-frame window; K20 on the three planes of a frame), and K4's
+    seat entry at 4:4:4's slot counts on the 4:4:4 I events of 4 shards;
+    tolerance 0, then timed (median of 20 after an L2 flush) beside the
+    plain version, the bound and, for K20, ``index_select``."""
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = (lambda: flush_l2(l2))
+    cands = scroll_candidates(24, 8)
+    out = {}
+    f0 = torch.as_tensor(frames[0]).to(dev)
+    R = f0.shape[0] // 16
+    M = f0.shape[1] // 16
+    band = f0.shape[0] // STRIPE_SHARDS
+    qp = torch.full((R,), 28, dtype=torch.int32, device=dev)
+    for fullcolor in (False, True):
+        sfx = "444" if fullcolor else ""
+        cdiv = 1 if fullcolor else 2
+        ref = stripe_planes(f0, fullcolor)
+        cur = stripe_planes(torch.roll(f0, -7, 0), fullcolor)[0]
+        halos = (24, 24 if fullcolor else 13)
+        bands = [ST.halo_bands(ref[0], band, halos[0])] + [
+            ST.halo_bands(p, band // cdiv, halos[1]) for p in ref[1:]]
+        if not fullcolor:
+            plain_b = [ST.halo_bands_plain(ref[0], band, halos[0])] + [
+                ST.halo_bands_plain(p, band // cdiv, halos[1])
+                for p in ref[1:]]
+            err = max_abs_err(bands, plain_b)
+            check(err == 0, f"halo_bands differs from plain (err {err})")
+            idx = [ST._halo_index(STRIPE_SHARDS, b, h, p.shape[0], dev)
+                   .reshape(-1) for p, b, h in zip(
+                       ref, (band, band // 2, band // 2),
+                       (halos[0], halos[1], halos[1]))]
+            lib_b = [p.index_select(0, i).view_as(b)
+                     for p, i, b in zip(ref, idx, bands)]
+            check(max_abs_err(bands, lib_b) == 0,
+                  "halo_bands differs from index_select")
+
+            def k20():
+                ST.halo_bands(ref[0], band, halos[0])
+                for p in ref[1:]:
+                    ST.halo_bands(p, band // 2, halos[1])
+
+            def p20():
+                ST.halo_bands_plain(ref[0], band, halos[0])
+                for p in ref[1:]:
+                    ST.halo_bands_plain(p, band // 2, halos[1])
+            ms = time_fn(k20, 20, flush=flush, hide_launch=True)
+            pms = time_fn(p20, 3)
+            lib = time_fn(lambda: [p.index_select(0, i)
+                                   for p, i in zip(ref, idx)], 20,
+                          flush=flush, hide_launch=True)
+            out["halo_bands"] = (err, ms, pms,
+                                 nbytes(*ref) + nbytes(*bands), 0, lib)
+        kern = ST.motion_select_halo444 if fullcolor \
+            else ST.motion_select_halo
+        plain = ST.motion_select_halo444_plain if fullcolor \
+            else ST.motion_select_halo_plain
+        k5 = motion_select444 if fullcolor else motion_select
+        ko = kern(cur, *bands, qp, cands, f0.shape[0])
+        err = max_abs_err(ko, plain(cur, *bands, qp, cands, f0.shape[0]))
+        check(err == 0 and max_abs_err(ko, k5(cur, *ref, qp, cands,
+                                              f0.shape[0])) == 0,
+              f"motion_select_halo{sfx} differs from plain or K5 "
+              f"(err {err})")
+        check(bool((ko[3][..., 1] == 28).any()),
+              f"motion_select_halo{sfx} chose no 7-row scroll")
+        ms = time_fn(lambda: kern(cur, *bands, qp, cands, f0.shape[0],
+                                  out=ko), 20, flush=flush, hide_launch=True)
+        pms = time_fn(lambda: plain(cur, *bands, qp, cands, f0.shape[0]), 3)
+        out[f"motion_select_halo{sfx}"] = (
+            err, ms, pms, nbytes(cur, *bands, qp, *ko),
+            3 * 256 * len(cands) * R * M, None)
+    # K4's seat entry on the 4:4:4 I events of the four shards
+    y, u, v = stripe_planes(f0, True)
+    g = plan_h264_grid(CaptureSettings(capture_width=WIDTH,
+                                       capture_height=HEIGHT))
+    e_cap, w_cap, _ = h264_buffer_caps(g, True)
+    send = torch.ones((1,), dtype=torch.int32, device=dev)
+    rec = [torch.empty_like(p) for p in (y, u, v)]
+    lv, cbp, hp, hn = H4.mb_encode_i444(y, u, v, qp, send, R, *rec)
+    ev = H4.cavlc_events444(lv, cbp, True)
+    row_hp, row_hn = (torch.as_tensor(a.astype(np.int32), device=dev)
+                      for a in hcodec.slice_header_events(M, R))
+    row_id = torch.arange(R, dtype=torch.int32, device=dev) % 16
+    out_cap = (R // STRIPE_SHARDS) * w_cap * 4
+    args = (hp, hn, *ev, row_hp, row_hn, row_id, qp, True, e_cap, w_cap,
+            out_cap)
+    k4 = HP.pack_stream_seats(*args, n_seats=STRIPE_SHARDS)
+    err = max_abs_err(k4, HP.pack_stream_seats_plain(
+        *args, n_seats=STRIPE_SHARDS))
+    check(err == 0 and not bool(k4.flags.any()),
+          f"pack_stream_seats at 4:4:4 differs from plain (err {err})")
+    ms = time_fn(lambda: HP.pack_stream_seats(*args,
+                                              n_seats=STRIPE_SHARDS), 20,
+                 flush=flush, hide_launch=True)
+    pms = time_fn(lambda: HP.pack_stream_seats_plain(
+        *args, n_seats=STRIPE_SHARDS), 3)
+    out["pack_stream_seats444"] = (err, ms, pms, nbytes(hp, hn, *ev, *k4),
+                                   10 * ev[1].numel(), None)
+    return out
+
+
 def run_path(name: str, path: tuple, run) -> tuple:
     """Counters to 0, ``run()``, counters read: every kernel of ``path``
     must have launched. -> (run's result, launches)."""
@@ -2057,7 +2464,7 @@ def main() -> int:
     # 5. fullcolor: both H.264 sequences and the H.264 capture loop
     fc = fullcolor_path(settings, dsettings, frames, seq)
     fc_launches = {k: sum(lc[k] for lc in fc["launches"].values())
-                   for k in KERNELS}
+                   for k in _cuda.LAUNCHES}
     for name, st in fc["capture"].items():
         print(f"capture loop h264_444 {name} ({WIDTH}x{HEIGHT}, host "
               f"clock): " + json.dumps(st))
@@ -2091,14 +2498,26 @@ def main() -> int:
     # 7. roi: the default sequence with ROI QP, at bias 4 and at bias 12
     roi = roi_path(dsettings, seq, dlog)
     roi_launches = {k: sum(lc[k] for lc in roi["launches"].values())
-                    for k in KERNELS}
+                    for k in _cuda.LAUNCHES}
+
+    # 8. stripes: split-frame frames and the sharded session, 4 shards
+    stripes = stripes_path(settings, dsettings, frames, seq,
+                           torch.device("cuda", 0))
+    stripes_c1(dsettings, seq, dlog)
     others = {"stock": stock_launches, "default": launches,
               "jpeg": jpeg_launches, "capture": capture_launches,
               **{f"fullcolor {k}": v for k, v in fc["launches"].items()},
-              "seats": seats["launches"]}
+              "seats": seats["launches"],
+              **{f"stripes {k}": v for k, v in stripes["launches"].items()}}
     for run, lc in others.items():
         bad = {k: lc[k] for k in ROI_KERNELS if lc.get(k)}
         check(not bad, f"the {run} path launched ROI QP kernels {bad}")
+    for run, lc in others.items():
+        if run.startswith("stripes"):
+            continue
+        bad = {k: lc[k] for k in ("halo_bands", "motion_select_halo",
+                                  "motion_select_halo444") if lc.get(k)}
+        check(not bad, f"the {run} path launched split-frame kernels {bad}")
 
     # the overflow episodes grew the buffers: the kernels are checked and
     # timed at the stock caps
@@ -2124,6 +2543,7 @@ def main() -> int:
             print(f"  {name} at {n} seats: {ms:.4f} ms (plain {pms:.2f} "
                   f"ms, bound {t_b:.4f} ms)")
         recs[name] = per_n[SEATS]
+    recs.update(stripe_kernel_checks(frames, stock.device))
     f2, f3 = (torch.as_tensor(f).cuda() for f in frames[2:4])
     times = frame_times(settings, {"I": (f3, f2, True),
                                    "P": (f3, f2, False)})
@@ -2181,8 +2601,9 @@ def main() -> int:
           f"stripes): {ms:.4f} ms (plain {pms:.2f} ms, bound "
           f"{max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3:.4f} ms, "
           f"library {lib:.4f} ms)")
-    # library_ms: K6's one-expression torch counterpart and F.pad for
-    # K11; null elsewhere, since no single PyTorch call does CSC +
+    # library_ms: K6's one-expression torch counterpart, F.pad for K11
+    # and index_select for K20; null elsewhere, since no single PyTorch
+    # call does block matching (K5, K19), CSC +
     # subsampling + damage (K1), the H.264 transforms, CAVLC or bit
     # packing (K2-K5, K14-K16, K4's seat entry), CSC + DCT + quantisation
     # + zigzag (K7), Huffman events (K8), bit packing (K9 and its seat
@@ -2190,16 +2611,23 @@ def main() -> int:
     # a blend rounded half to even, clipped and written back (K12) or
     # CSC rounded to three planes + damage (K13)
     rows = []
+    s420, s444 = (stripes["launches"][k] for k in ("4:2:0", "4:4:4"))
     for name, (src, replaces) in KERNELS.items():
         err, ms, pms, by, ops, lib = recs[name]
         t_bytes = by / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
-        n = launches[name] if name in DEFAULT_PATH else 0
-        n += jpeg_launches[name] if name in JPEG_PATH else 0
-        n += capture_launches[name]
-        n += fc_launches[name]
-        n += seats["launches"][name]
-        n += roi_launches[name]
+        if name == "pack_stream_seats444":
+            # the C entry pack_stream_seats, launched at 4:4:4's slots
+            n = s444["pack_stream_seats"]
+        else:
+            n = launches[name] if name in DEFAULT_PATH else 0
+            n += jpeg_launches[name] if name in JPEG_PATH else 0
+            n += capture_launches[name]
+            n += fc_launches[name]
+            n += seats["launches"][name]
+            n += roi_launches[name]
+            n += s420[name]
+            n += s444[name] if name != "pack_stream_seats" else 0
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": n,
                      "max_abs_err": err, "ms": ms, "plain_ms": pms,
@@ -2212,6 +2640,7 @@ def main() -> int:
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
     print(f"roi path launches: {json.dumps(roi['launches'])}")
+    print(f"stripes path launches: {json.dumps(stripes['launches'])}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of its 1200 s "
           "limit, the kernels' build included")
     print(json.dumps({"kernels": rows}))

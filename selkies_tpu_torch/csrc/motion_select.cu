@@ -33,6 +33,21 @@
 // but the chroma planes are full resolution and ride the luma's full-pel
 // shift with the luma's window and width clamps (256 pixels a component,
 // one tap each).
+//
+// K19 motion_select_halo / motion_select_halo444 (the HALO template
+// argument) replace selkies_tpu/parallel/stripes.py:_motion_select_halo,
+// the search of a split frame whose motion windows span shards: the
+// frame's MB rows are n shards of ``rows`` MB rows, and the reference
+// planes come as the shards' halo bands (K20, csrc/halo_bands.cu), band s
+// holding frame rows row0 - halo .. row0 + 16 * rows + halo - 1 (row0 =
+// 16 * rows * s). The window clamp is the same function of the GLOBAL row
+// (gy = 16 * blockIdx.y, wbase = gy - gy % win), so a clamped source row
+// ry is read at band row ry - (row0 - halo) of band s, which is row
+// ry + (2 s + 1) * halo of the stacked bands: luma at the luma halo, and
+// chroma at the chroma halo (4:2:0 on chroma rows, whose windows are
+// win / 2 rows). Everything else is K5's code; with HALO false the offsets
+// are the constant 0 and K5's entries compile as they did. Bound and
+// design as K5's: the bands are read in place of the planes.
 #include "h264_common.cuh"
 
 #define MAX_CANDIDATES 128
@@ -43,6 +58,11 @@ struct Candidates {
   short dx[MAX_CANDIDATES];
 };
 
+// K19's shard geometry: MB rows a shard, luma and chroma halo rows
+struct Halo {
+  int rows, y, c;
+};
+
 __device__ __forceinline__ int se_bits(int v) {
   const unsigned cn = v > 0 ? 2u * v - 1u : static_cast<unsigned>(-2 * v);
   return 2 * (32 - __clz(cn + 1u)) - 1;
@@ -51,12 +71,12 @@ __device__ __forceinline__ int se_bits(int v) {
 // floor(v / 2) and v mod 2 as Python's >> and & give them
 __device__ __forceinline__ int floor_half(int v) { return (v - (v & 1)) / 2; }
 
-template <bool FULL>
+template <bool FULL, bool HALO>
 __global__ void motion_select_kernel(
     const uint8_t* __restrict__ cur_y, const uint8_t* __restrict__ ref_y,
     const uint8_t* __restrict__ ref_u, const uint8_t* __restrict__ ref_v,
     const int* __restrict__ qp_rows, const Candidates c, int W, int win,
-    uint8_t* __restrict__ pred_y, uint8_t* __restrict__ pred_u,
+    const Halo h, uint8_t* __restrict__ pred_y, uint8_t* __restrict__ pred_u,
     uint8_t* __restrict__ pred_v, int* __restrict__ mv) {
   extern __shared__ int smi[];
   const int TW = 16 + 2 * c.hmax, TH = 16 + 2 * c.vmax;
@@ -69,10 +89,18 @@ __global__ void motion_select_kernel(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int y0 = 16 * r, yl = y0 % win, wbase = y0 - yl;
+  // K19: frame row ry of the reference is row ry + off of the stacked
+  // halo bands (0 for K5, which reads the planes)
+  int off_y = 0, off_c = 0;
+  if constexpr (HALO) {
+    const int s2 = 2 * (r / h.rows) + 1;
+    off_y = s2 * h.y;
+    off_c = s2 * h.c;
+  }
 
   for (int i = tid; i < TH * TW; i += nthreads) {
     const int t = i / TW, u = i % TW;
-    const int ry = wbase + clampi(yl + t - c.vmax, 0, win - 1);
+    const int ry = wbase + clampi(yl + t - c.vmax, 0, win - 1) + off_y;
     const int rx = clampi(16 * m + u - c.hmax, 0, W - 1);
     tile[i] = ref_y[static_cast<size_t>(ry) * W + rx];
   }
@@ -123,7 +151,7 @@ __global__ void motion_select_kernel(
     for (int p = tid; p < 512; p += nthreads) {
       const int comp = p >> 8, i = (p >> 4) & 15, j = p & 15;
       const uint8_t* src = comp ? ref_v : ref_u;
-      const int ry = wbase + clampi(yl + i + dy, 0, win - 1);
+      const int ry = wbase + clampi(yl + i + dy, 0, win - 1) + off_c;
       const int rx = clampi(16 * m + j + dx, 0, W - 1);
       (comp ? pred_v : pred_u)[static_cast<size_t>(y0 + i) * W + 16 * m + j] =
           src[static_cast<size_t>(ry) * W + rx];
@@ -134,8 +162,8 @@ __global__ void motion_select_kernel(
     for (int p = tid; p < 128; p += nthreads) {
       const int comp = p >> 6, i = (p >> 3) & 7, j = p & 7;
       const uint8_t* src = comp ? ref_v : ref_u;
-      const int r0 = cbase + clampi(cyl + i + by, 0, cwin - 1);
-      const int r1 = cbase + clampi(cyl + i + by + 1, 0, cwin - 1);
+      const int r0 = cbase + clampi(cyl + i + by, 0, cwin - 1) + off_c;
+      const int r1 = cbase + clampi(cyl + i + by + 1, 0, cwin - 1) + off_c;
       const int c0 = clampi(8 * m + j + bx, 0, W2 - 1);
       const int c1 = clampi(8 * m + j + bx + 1, 0, W2 - 1);
       const int a = src[static_cast<size_t>(r0) * W2 + c0];
@@ -164,12 +192,13 @@ __global__ void motion_select_kernel(
 
 // cand: host (n, 2) int32 (dy, dx) table, read here before the launch and
 // passed to the kernel by value.
-template <bool FULL>
+template <bool FULL, bool HALO>
 static int launch_motion(const uint8_t* cur_y, const uint8_t* ref_y,
                          const uint8_t* ref_u, const uint8_t* ref_v,
                          const int* qp_rows, const int* cand, int n, int H,
-                         int W, int win, uint8_t* pred_y, uint8_t* pred_u,
-                         uint8_t* pred_v, int* mv, void* stream) {
+                         int W, int win, Halo h, uint8_t* pred_y,
+                         uint8_t* pred_u, uint8_t* pred_v, int* mv,
+                         void* stream) {
   if (n < 1 || n > MAX_CANDIDATES) return static_cast<int>(cudaErrorInvalidValue);
   Candidates c;
   c.n = n;
@@ -187,9 +216,9 @@ static int launch_motion(const uint8_t* cur_y, const uint8_t* ref_y,
   const size_t smem = sizeof(int) * (MAX_CANDIDATES + 4) + 256 +
                       static_cast<size_t>(16 + 2 * c.vmax) * (16 + 2 * c.hmax);
   dim3 grid(W / 16, H / 16);
-  motion_select_kernel<FULL>
+  motion_select_kernel<FULL, HALO>
       <<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
-          cur_y, ref_y, ref_u, ref_v, qp_rows, c, W, win, pred_y, pred_u,
+          cur_y, ref_y, ref_u, ref_v, qp_rows, c, W, win, h, pred_y, pred_u,
           pred_v, mv);
   return static_cast<int>(cudaGetLastError());
 }
@@ -199,8 +228,9 @@ extern "C" int motion_select(const uint8_t* cur_y, const uint8_t* ref_y,
                              const int* qp_rows, const int* cand, int n, int H,
                              int W, int win, uint8_t* pred_y, uint8_t* pred_u,
                              uint8_t* pred_v, int* mv, void* stream) {
-  return launch_motion<false>(cur_y, ref_y, ref_u, ref_v, qp_rows, cand, n, H,
-                              W, win, pred_y, pred_u, pred_v, mv, stream);
+  return launch_motion<false, false>(cur_y, ref_y, ref_u, ref_v, qp_rows,
+                                     cand, n, H, W, win, Halo{1, 0, 0},
+                                     pred_y, pred_u, pred_v, mv, stream);
 }
 
 // the 4:4:4 entry: ref_u / ref_v and pred_u / pred_v are H x W
@@ -210,6 +240,35 @@ extern "C" int motion_select444(const uint8_t* cur_y, const uint8_t* ref_y,
                                 int H, int W, int win, uint8_t* pred_y,
                                 uint8_t* pred_u, uint8_t* pred_v, int* mv,
                                 void* stream) {
-  return launch_motion<true>(cur_y, ref_y, ref_u, ref_v, qp_rows, cand, n, H,
-                             W, win, pred_y, pred_u, pred_v, mv, stream);
+  return launch_motion<true, false>(cur_y, ref_y, ref_u, ref_v, qp_rows,
+                                    cand, n, H, W, win, Halo{1, 0, 0},
+                                    pred_y, pred_u, pred_v, mv, stream);
+}
+
+// K19: hy (n, 16 * rows + 2 * halo_y, W) and hu / hv (n, 8 * rows +
+// 2 * halo_c, W / 2) are the halo bands of the reference planes; the
+// caller checks that the halos cover the candidates' reach.
+extern "C" int motion_select_halo(const uint8_t* cur_y, const uint8_t* hy,
+                                  const uint8_t* hu, const uint8_t* hv,
+                                  const int* qp_rows, const int* cand, int n,
+                                  int H, int W, int win, int rows, int halo_y,
+                                  int halo_c, uint8_t* pred_y,
+                                  uint8_t* pred_u, uint8_t* pred_v, int* mv,
+                                  void* stream) {
+  return launch_motion<false, true>(cur_y, hy, hu, hv, qp_rows, cand, n, H, W,
+                                    win, Halo{rows, halo_y, halo_c}, pred_y,
+                                    pred_u, pred_v, mv, stream);
+}
+
+// the 4:4:4 entry: hu / hv (n, 16 * rows + 2 * halo_c, W), full resolution
+extern "C" int motion_select_halo444(const uint8_t* cur_y, const uint8_t* hy,
+                                     const uint8_t* hu, const uint8_t* hv,
+                                     const int* qp_rows, const int* cand,
+                                     int n, int H, int W, int win, int rows,
+                                     int halo_y, int halo_c, uint8_t* pred_y,
+                                     uint8_t* pred_u, uint8_t* pred_v,
+                                     int* mv, void* stream) {
+  return launch_motion<true, true>(cur_y, hy, hu, hv, qp_rows, cand, n, H, W,
+                                   win, Halo{rows, halo_y, halo_c}, pred_y,
+                                   pred_u, pred_v, mv, stream);
 }

@@ -131,10 +131,15 @@ class ScreenCapture:
             self._callback = callback
             self._settings = settings
             if settings.output_mode == "h264":
-                # stripe_devices > 1 (split-frame over several devices)
-                # raises in the session: not ported yet (ROADMAP A11b)
-                from .h264_encoder import H264EncoderSession
-                self._session = H264EncoderSession(settings, self.device)
+                if int(settings.stripe_devices) > 1:
+                    # split-frame: one frame's stripes as shards
+                    # (parallel/stripes.py), on this loop's device
+                    from .h264_encoder import StripeShardedH264Session
+                    self._session = StripeShardedH264Session(settings,
+                                                             self.device)
+                else:
+                    from .h264_encoder import H264EncoderSession
+                    self._session = H264EncoderSession(settings, self.device)
             else:
                 self._session = JpegEncoderSession(settings, self.device)
             # per-frame CBR state: empty bucket, base = the session's

@@ -40,6 +40,11 @@ as in the reference.
 Only the byte buffer prefix, the row lengths and the flags leave the
 device.
 
+:class:`StripeShardedH264Session` is the split-frame session
+(``stripe_devices``): the frame's stripes as shards on one device, the
+stock step launched once a frame over all of them with K4's seat entry
+``pack_stream_seats`` giving each shard its own byte buffer.
+
 Where the reference donates its state buffers to the jitted step, the
 port updates preallocated state tensors in place: ``prev`` (by K1), the
 reference planes (by K2, for sent rows only), ``age``, ``sent`` and
@@ -52,6 +57,7 @@ probe's (R,) flags, which decide what to launch. Otherwise
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import threading
 import time
@@ -65,8 +71,9 @@ from ..codecs import h264 as hcodec
 from ..ops.bands import dirty_fraction as _dirty_fraction
 from ..ops.bands import plan_band
 from ..ops.h264_encode import P_SLOTS_MB, SLOTS_MB, scroll_candidates
-from ..ops.h264_planes import KERNEL_OPS, StepOps, p_rows
-from ..ops.h264_planes444 import KERNEL_OPS_444, P_SLOTS_MB_444, SLOTS_MB_444
+from ..ops.h264_planes import KERNEL_OPS, SEAT_KERNEL_OPS, StepOps, p_rows
+from ..ops.h264_planes444 import (KERNEL_OPS_444, P_SLOTS_MB_444,
+                                  SEAT_KERNEL_OPS_444, SLOTS_MB_444)
 from ..resilience import faults as _faults
 from ..trace import tracer as _tracer
 from . import state as _state
@@ -137,14 +144,6 @@ def _motion_candidates(s: CaptureSettings) -> tuple:
     vr = max(0, int(s.h264_motion_vrange))
     hr = max(0, int(s.h264_motion_hrange))
     return scroll_candidates(vr, hr) if vr else ((0, 0),)
-
-
-def _check_slice(s: CaptureSettings) -> None:
-    """Raise for settings outside the ported slice, naming its ROADMAP
-    item."""
-    if int(s.stripe_devices) > 1:
-        raise NotImplementedError("stripe_devices>1 (split-frame, ROADMAP "
-                                  "A11b) is not ported yet")
 
 
 def build_h264_step_fn(mode: str, width: int, stripe_h: int, n_stripes: int,
@@ -304,11 +303,10 @@ class H264EncoderSession:
     STATE_KEYS = _state.H264_STATE
 
     def __init__(self, settings: CaptureSettings, device=None):
-        _check_slice(settings)
         self.device = resolve_device(device)
         self.settings = settings
         self.fullcolor = bool(settings.fullcolor)
-        self._ops = KERNEL_OPS_444 if self.fullcolor else KERNEL_OPS
+        self._ops = self._step_ops()
         self.grid = plan_h264_grid(settings)
         g = self.grid
         self.n_rows = g.n_stripes * g.rows_per_stripe
@@ -386,6 +384,10 @@ class H264EncoderSession:
         #: last-frame observability
         self.dirty_fraction = 1.0
         self.last_band_rows = self.n_rows
+
+    def _step_ops(self) -> StepOps:
+        """The kernel set of the session's chroma format."""
+        return KERNEL_OPS_444 if self.fullcolor else KERNEL_OPS
 
     def _build_step(self, mode: str):
         g, s = self.grid, self.settings
@@ -559,7 +561,7 @@ class H264EncoderSession:
         overflowed, idle, lens, send, intra = self._sync_control(out)
         data = starts = None
         if not overflowed and not idle:
-            starts = self._row_starts(lens)
+            starts = self._row_starts(out, lens)
             band = out.get("band")
             # fetch through the last DELIVERED stripe's rows only; band
             # frames through the last band row of a sent stripe (clean
@@ -599,7 +601,7 @@ class H264EncoderSession:
             return
         if idle:
             return
-        starts = self._row_starts(lens)
+        starts = self._row_starts(out, lens)
         rps = g.rows_per_stripe
         band = out.get("band")
         if band is not None:
@@ -673,9 +675,11 @@ class H264EncoderSession:
                     int(fnum_used[i])))
         return rows
 
-    @staticmethod
-    def _row_starts(lens: np.ndarray) -> np.ndarray:
-        """Byte offset of each MB row inside ``out['data']``."""
+    def _row_starts(self, out: dict[str, Any], lens: np.ndarray
+                    ) -> np.ndarray:
+        """Byte offset of each MB row inside ``out['data']``: the rows back
+        to back (:class:`StripeShardedH264Session` has a region a shard)."""
+        del out
         return np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int64)
 
     def _sync_control(self, out: dict[str, Any]):
@@ -715,3 +719,86 @@ class H264EncoderSession:
             self._cap_gen += 1
         with self._drop_lock:
             self._force_after_drop = True
+
+
+class StripeShardedH264Session(H264EncoderSession):
+    """H.264 session with one frame's stripes split into
+    ``settings.stripe_devices`` shards (the reference's split-frame
+    session), with the lifecycle and the byte-identical chunks of
+    :class:`H264EncoderSession`.
+
+    The mesh is resolved over the grid's stripes
+    (parallel/stripes.py:stripe_mesh, which logs and gauges the chosen
+    count); ``devices`` None means ``[device]`` when a ``device`` is
+    given, else every card. At a resolved count of 1 this IS
+    :class:`H264EncoderSession`, band path and ROI QP included. Above 1
+    the band path is off, as in the reference, and the stock step runs
+    over the whole frame on the mesh's one device with K4's seat entry
+    in place of K4: each shard's rows get their own byte buffer of
+    ``_out_cap_local`` bytes and their own overflow flags (the
+    reference's ``shard_map`` over whole stripes). Each kernel launches
+    once a frame; ``out['data']`` is the shards' buffers back to back,
+    and a frame overflows when any shard does. A mesh of distinct
+    devices raises (ROADMAP A11c)."""
+
+    def __init__(self, settings: CaptureSettings, device=None, devices=None):
+        # parallel/ imports this module: resolved at construction
+        from ..parallel.stripes import one_device, stripe_mesh
+        if devices is None and device is not None:
+            devices = [device]
+        g = plan_h264_grid(settings)
+        self.mesh = stripe_mesh(g.n_stripes, devices=devices,
+                                requested=max(1, int(settings.stripe_devices)))
+        #: the CHOSEN shard count (may be below the request: logged and
+        #: gauged by stripe_mesh)
+        self.stripe_devices = int(self.mesh.devices.size)
+        super().__init__(settings, one_device(self.mesh.devices))
+        if self.stripe_devices > 1:
+            self._partial = False
+
+    def _step_ops(self) -> StepOps:
+        """The sets with K4's seat entry above one shard."""
+        if self.stripe_devices <= 1:
+            return super()._step_ops()
+        return SEAT_KERNEL_OPS_444 if self.fullcolor else SEAT_KERNEL_OPS
+
+    @property
+    def _out_cap_local(self) -> int:
+        """A shard's byte-buffer capacity (grows with ``_out_cap``; ceil,
+        so the shards hold at least ``_out_cap``)."""
+        return -(-self._out_cap // self.stripe_devices)
+
+    def _build_step(self, mode: str):
+        n = self.stripe_devices
+        if n <= 1:
+            return super()._build_step(mode)
+        g, s = self.grid, self.settings
+        ops = self._ops._replace(pack_stream=functools.partial(
+            self._ops.pack_stream, n_seats=n))
+        step = build_h264_step_fn(mode, g.width, g.stripe_h, g.n_stripes,
+                                  self._e_cap, self._w_cap,
+                                  self._out_cap_local,
+                                  s.paint_over_delay_frames,
+                                  s.use_damage_gating, s.use_paint_over,
+                                  candidates=self._candidates, ops=ops,
+                                  scratch=self._scratch)
+
+        def sharded_step(*args, **kw):
+            data, lens, send, is_paint, overflow = step(*args, **kw)
+            return data.view(-1), lens, send, is_paint, overflow.any()
+
+        sharded_step.__name__ = f"h264_stripes{n}_{mode}_step"
+        return sharded_step
+
+    def _row_starts(self, out: dict[str, Any], lens: np.ndarray
+                    ) -> np.ndarray:
+        """Shard d's rows start at ``d * local_cap``; the local cap is read
+        off ``out['data']`` (frames in flight may predate a growth)."""
+        n = self.stripe_devices
+        if n <= 1:
+            return super()._row_starts(out, lens)
+        local_cap = int(out["data"].shape[0]) // n
+        rl = lens.shape[0] // n
+        seg = lens.reshape(n, rl).astype(np.int64)
+        starts = np.cumsum(seg, 1) - seg
+        return (starts + local_cap * np.arange(n)[:, None]).reshape(-1)

@@ -33,7 +33,7 @@ SOURCES = ("csc420_damage", "mb_encode", "cavlc_events", "pack_stream",
            "motion_select", "row_damage_probe", "jpeg_forward",
            "jpeg_events", "jpeg_pack", "synthetic_frame", "pad_frame",
            "watermark_blend", "csc444_damage", "mb_encode444",
-           "roi_qp_plane", "mb_qp_delta", "errors")
+           "roi_qp_plane", "mb_qp_delta", "halo_bands", "errors")
 LIBRARY = "libselkies_cuda.so"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
@@ -66,6 +66,9 @@ ENTRIES = {
     "motion_select444": [_P] * 6 + [_I] * 4 + [_P] * 4,
     "roi_qp_plane": [_P] * 4 + [_I] * 3,
     "mb_qp_delta": [_P] * 4 + [_I] * 2,
+    "motion_select_halo": [_P] * 6 + [_I] * 7 + [_P] * 4,
+    "motion_select_halo444": [_P] * 6 + [_I] * 7 + [_P] * 4,
+    "halo_bands": [_P] + [_I] * 5 + [_P],
 }
 
 #: launches per C entry since the last :func:`reset_launches`

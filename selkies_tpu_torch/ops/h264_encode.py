@@ -183,45 +183,13 @@ def scroll_candidates(vrange: int = 24, hrange: int = 8) -> tuple:
     return tuple(c)
 
 
-def _clip_index(n: int, d: int, device):
-    return torch.as_tensor(np.clip(np.arange(n) + d, 0, n - 1),
-                           device=device)
-
-
-def _vshift(p, dy: int):
-    """(S, win, W): per-window vertical shift with edge clamp — the
-    decoder of a stripe stream clamps at its own picture bound."""
-    if dy == 0:
-        return p
-    return p[:, _clip_index(p.shape[1], dy, p.device), :]
-
-
 def _hshift(p, dx: int):
     """Horizontal shift with edge clamp (picture width is shared)."""
     if dx == 0:
         return p
-    return p[..., _clip_index(p.shape[-1], dx, p.device)]
-
-
-def _shift_chroma(p, dy: int, dx: int):
-    """Chroma prediction for a full-pel luma MV: the half-pel chroma
-    vector as the spec's eighth-sample bilinear (§8.4.2.2.2 with
-    xFracC/yFracC in {0, 4}): a 2- or 4-tap rounding average. ``>>`` and
-    ``&`` on Python ints floor, so dy = -3 gives by = -2, fy = 1."""
-    by, fy = dy >> 1, dy & 1
-    bx, fx = dx >> 1, dx & 1
-
-    def s(a, b):
-        return _hshift(_vshift(p, a), b)
-
-    if not fy and not fx:
-        return s(by, bx)
-    if fy and not fx:
-        return (s(by, bx) + s(by + 1, bx) + 1) >> 1
-    if fx and not fy:
-        return (s(by, bx) + s(by, bx + 1) + 1) >> 1
-    return (s(by, bx) + s(by + 1, bx) + s(by, bx + 1)
-            + s(by + 1, bx + 1) + 2) >> 2
+    idx = torch.as_tensor(np.clip(np.arange(p.shape[-1]) + dx, 0,
+                                  p.shape[-1] - 1), device=p.device)
+    return p[..., idx]
 
 
 def _sad_mb16(diff):
@@ -230,36 +198,64 @@ def _sad_mb16(diff):
     return diff.reshape(H // 16, 16, W // 16, 16).sum((1, 3))
 
 
-def _select(cur_y, ry_w, qp_rows, candidates):
-    """(R, M) index of each MB's candidate: argmin (first index on ties)
-    over SAD(luma) + lambda(qp_row) * (se_bits(4dx) + se_bits(4dy))."""
+def _motion_select_plain(cur_y, ry, ru, rv, qp_rows, candidates, win: int,
+                         out, full_chroma: bool):
+    """K5's search with the reference planes given as the (n, band + 2 *
+    halo, W) bands of n shards of the frame's rows, band s holding frame
+    rows ``s * band - halo`` onwards (K5 itself: one band, no halo, which
+    is the planes; split frames: parallel/stripes.py). Candidate (dy, dx)
+    of frame row g reads row ``clip(g + dy, wb, wb + win - 1)`` (``wb``
+    the first row of g's ``win``-row window: the decoder of a stripe
+    stream clamps at its own picture bound), found in g's band;
+    horizontal shifts clamp at the picture width. 4:2:0 chroma is the
+    eighth-sample bilinear of the half-pel chroma vector (a 2- or 4-tap
+    rounding average) on chroma rows and windows of ``win / 2``; ``>>``
+    and ``&`` on Python ints floor, so dy = -3 gives by = -2, fy = 1.
+    4:4:4 chroma rides the luma's full-pel shift."""
     H, W = cur_y.shape
-    cur = cur_y.to(torch.int32)
-    lam = torch.as_tensor(MV_LAMBDA_NP, device=cur_y.device)[
-        torch.clamp(qp_rows.to(torch.int64), 0, 51)]           # (R,)
-    costs = []
-    for dy, dx in candidates:
-        sh = _hshift(_vshift(ry_w, dy), dx).reshape(H, W)
-        bits = se_bits(4 * dx) + se_bits(4 * dy)
-        costs.append(_sad_mb16((cur - sh).abs()) + lam[:, None] * bits)
-    return torch.argmin(torch.stack(costs), 0)
-
-
-def _motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
-                         win: int, out, full_chroma: bool):
-    H, W = cur_y.shape
-    S = H // win
     dev = cur_y.device
     cdiv = 1 if full_chroma else 2
-    ry_w = ref_y.to(torch.int32).reshape(S, win, W)
-    ru_w = ref_u.to(torch.int32).reshape(S, win // cdiv, W // cdiv)
-    rv_w = ref_v.to(torch.int32).reshape(S, win // cdiv, W // cdiv)
-    sel = _select(cur_y, ry_w, qp_rows, candidates)             # (R, M)
+    n = ry.shape[0]
+    band = H // n
 
-    def chroma(p, dy, dx):
+    def shifted(p, dy: int, dx: int, c: int):
+        """plane p's bands shifted by (dy, dx), rows of 1/c resolution."""
+        h, rows = H // c, band // c
+        halo = (p.shape[1] - rows) // 2
+        g = np.arange(h)
+        s, wb = g // rows, g // (win // c) * (win // c)
+        idx = np.clip(g + dy, wb, wb + win // c - 1) - s * rows + halo
+        if idx.min() < 0 or idx.max() >= p.shape[1]:
+            raise AssertionError("a candidate read outside its halo band")
+        rows_at = torch.as_tensor(s * p.shape[1] + idx, device=dev)
+        return _hshift(p.reshape(-1, p.shape[-1])[rows_at], dx)
+
+    def chroma(p, dy: int, dx: int):
         if full_chroma:
-            return _hshift(_vshift(p, dy), dx)
-        return _shift_chroma(p, dy, dx)
+            return shifted(p, dy, dx, 1)
+        by, fy, bx, fx = dy >> 1, dy & 1, dx >> 1, dx & 1
+
+        def s_c(a, b):
+            return shifted(p, a, b, 2)
+        if not fy and not fx:
+            return s_c(by, bx)
+        if fy and not fx:
+            return (s_c(by, bx) + s_c(by + 1, bx) + 1) >> 1
+        if fx and not fy:
+            return (s_c(by, bx) + s_c(by, bx + 1) + 1) >> 1
+        return (s_c(by, bx) + s_c(by + 1, bx) + s_c(by, bx + 1)
+                + s_c(by + 1, bx + 1) + 2) >> 2
+
+    ry, ru, rv = (p.to(torch.int32) for p in (ry, ru, rv))
+    cur = cur_y.to(torch.int32)
+    # argmin (first index on ties) over SAD(luma) + lambda(qp_row) *
+    # (se_bits(4dx) + se_bits(4dy))
+    lam = torch.as_tensor(MV_LAMBDA_NP, device=dev)[
+        torch.clamp(qp_rows.to(torch.int64), 0, 51)]           # (R,)
+    sel = torch.argmin(torch.stack(
+        [_sad_mb16((cur - shifted(ry, dy, dx, 1)).abs())
+         + lam[:, None] * (se_bits(4 * dx) + se_bits(4 * dy))
+         for dy, dx in candidates]), 0)                         # (R, M)
     sel_y = sel.repeat_interleave(16, 0).repeat_interleave(16, 1)
     sel_c = sel.repeat_interleave(16 // cdiv, 0).repeat_interleave(
         16 // cdiv, 1)
@@ -268,12 +264,9 @@ def _motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
     pred_u = torch.zeros(cshape, dtype=torch.int32, device=dev)
     pred_v = torch.zeros_like(pred_u)
     for k, (dy, dx) in enumerate(candidates):
-        pred_y = torch.where(
-            sel_y == k, _hshift(_vshift(ry_w, dy), dx).reshape(H, W), pred_y)
-        pred_u = torch.where(sel_c == k, chroma(ru_w, dy, dx).reshape(cshape),
-                             pred_u)
-        pred_v = torch.where(sel_c == k, chroma(rv_w, dy, dx).reshape(cshape),
-                             pred_v)
+        pred_y = torch.where(sel_y == k, shifted(ry, dy, dx, 1), pred_y)
+        pred_u = torch.where(sel_c == k, chroma(ru, dy, dx), pred_u)
+        pred_v = torch.where(sel_c == k, chroma(rv, dy, dx), pred_v)
     cand_q = torch.as_tensor(np.asarray(candidates, np.int32)[:, ::-1] * 4,
                              device=dev)
     res = (pred_y.to(torch.uint8), pred_u.to(torch.uint8),
@@ -293,8 +286,9 @@ def motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
     horizontal ones at the picture width. -> (pred_y, pred_u, pred_v)
     uint8 and the (R, M, 2) int32 quarter-pel (mvx, mvy) field, copied
     into ``out`` when it is given."""
-    return _motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows,
-                                candidates, win, out, False)
+    return _motion_select_plain(cur_y, ref_y[None], ref_u[None],
+                                ref_v[None], qp_rows, candidates, win, out,
+                                False)
 
 
 def motion_select444_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
@@ -303,8 +297,9 @@ def motion_select444_plain(cur_y, ref_y, ref_u, ref_v, qp_rows, candidates,
     luma-SAD choice as :func:`motion_select_plain`, but the full-
     resolution chroma planes ride the luma's full-pel shift, with the
     luma's window and width clamps (no eighth-sample interpolation)."""
-    return _motion_select_plain(cur_y, ref_y, ref_u, ref_v, qp_rows,
-                                candidates, win, out, True)
+    return _motion_select_plain(cur_y, ref_y[None], ref_u[None],
+                                ref_v[None], qp_rows, candidates, win, out,
+                                True)
 
 
 def candidate_table(candidates) -> torch.Tensor:

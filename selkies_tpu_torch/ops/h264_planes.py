@@ -1368,15 +1368,20 @@ SEAT_PLAIN_OPS = PLAIN_OPS._replace(pack_stream=pack_stream_seats_plain)
 
 
 def p_rows(ops: StepOps, y, u, v, qp, send_rows, ref, candidates, win: int,
-           scratch=None, qp_mb=None):
+           scratch=None, qp_mb=None, pred=None):
     """K5 (when ``candidates`` is given) then K2-P over planes of whole MB
     rows; the recon lands in ``ref`` for the rows with ``send_rows`` set.
     The prediction is complete in ``scratch`` (or fresh planes) before K2
-    rewrites ``ref``. With a ``qp_mb`` plane (ROI QP, 4:2:0) K2-P codes
-    each MB at its QP and K18 writes the mb_qp_delta chain into its
-    headers; K5 keeps the row ``qp`` for its vector cost, as the
-    reference does. -> K2-P's (lv, cbp, hdr_pay, hdr_nb)."""
-    if candidates:
+    rewrites ``ref``. ``pred`` = (pred_y, pred_u, pred_v, mv), a
+    prediction made beforehand (the split-frame halo search,
+    parallel/stripes.py), takes K5's place. With a ``qp_mb`` plane (ROI
+    QP, 4:2:0) K2-P codes each MB at its QP and K18 writes the
+    mb_qp_delta chain into its headers; K5 keeps the row ``qp`` for its
+    vector cost, as the reference does. -> K2-P's (lv, cbp, hdr_pay,
+    hdr_nb)."""
+    if pred is not None:
+        *pred, mv = pred
+    elif candidates:
         *pred, mv = ops.motion_select(y, *ref, qp, candidates, win,
                                       out=scratch)
     else:
@@ -1436,31 +1441,51 @@ def h264_encode_yuv(yf, uf, vf, qp, header_pay, header_nb, e_cap: int,
     return (out, tuple(ref)) if want_recon else out
 
 
+def _encode_p_frame(ops: StepOps, yf, uf, vf, ref_y, ref_u, ref_v, qp,
+                    header_pay, header_nb, frame_num, e_cap: int, w_cap: int,
+                    candidates: tuple, stripe_rows, precomputed_motion,
+                    qp_mb, device):
+    """The P frame entries of both chroma formats over ``ops``."""
+    (y, u, v), qp, hp, hn, fn = _frame_args(yf, uf, vf, qp, header_pay,
+                                            header_nb, frame_num, device)
+    R, M = y.shape[0] // 16, y.shape[1] // 16
+    dev = y.device
+    send = torch.ones((R,), dtype=torch.int32, device=dev)
+    ref = [_as_tensor(p, dev).to(torch.uint8).clone()
+           for p in (ref_y, ref_u, ref_v)]
+    if qp_mb is not None:
+        qp_mb = _as_tensor(qp_mb, dev).to(torch.int32).contiguous()
+    pred = None
+    if precomputed_motion is not None:
+        *planes, mv = precomputed_motion
+        pred = (*(_as_tensor(p, dev).to(torch.uint8).contiguous()
+                  for p in planes),
+                _as_tensor(mv, dev).to(torch.int32).reshape(R, M, 2)
+                .contiguous())
+    lv, cbp, hdr_pay, hdr_nb = p_rows(
+        ops, y, u, v, qp, send, ref,
+        candidates if len(candidates) > 1 else None, 16 * (stripe_rows or R),
+        qp_mb=qp_mb, pred=pred)
+    ev_pay, ev_nb = ops.cavlc_events(lv, cbp, False)
+    st = ops.pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, hp, hn, fn, qp,
+                         False, e_cap, w_cap, R * w_cap * 4)
+    return H264FrameOut(st.words, st.total_bits, st.flags[0] != 0, R), \
+        tuple(ref)
+
+
 def h264_encode_p_yuv(yf, uf, vf, ref_y, ref_u, ref_v, qp, header_pay,
                       header_nb, frame_num, e_cap: int, w_cap: int,
                       candidates: tuple = ((0, 0),),
-                      stripe_rows: int | None = None, qp_mb=None,
-                      device=None):
+                      stripe_rows: int | None = None,
+                      precomputed_motion=None, qp_mb=None, device=None):
     """The reference's plane-layout P encoder, through the main path's
     kernels: K5 when ``candidates`` holds more than the zero vector (its
     windows are ``16 * (stripe_rows or R)`` rows), then K2 -> K3 -> K4,
     with K18 after K2 when a ``qp_mb`` (R, M) per-MB QP plane (ROI QP)
-    is given. The reference planes are copied, not updated. ``device``
-    as for :func:`h264_encode_yuv`."""
-    (y, u, v), qp, hp, hn, fn = _frame_args(yf, uf, vf, qp, header_pay,
-                                            header_nb, frame_num, device)
-    R = y.shape[0] // 16
-    send = torch.ones((R,), dtype=torch.int32, device=y.device)
-    ref = [_as_tensor(p, y.device).to(torch.uint8).clone()
-           for p in (ref_y, ref_u, ref_v)]
-    if qp_mb is not None:
-        qp_mb = _as_tensor(qp_mb, y.device).to(torch.int32).contiguous()
-    lv, cbp, hdr_pay, hdr_nb = p_rows(
-        KERNEL_OPS, y, u, v, qp, send, ref,
-        candidates if len(candidates) > 1 else None, 16 * (stripe_rows or R),
-        qp_mb=qp_mb)
-    ev_pay, ev_nb = cavlc_events(lv, cbp, False)
-    st = pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, hp, hn, fn, qp, False,
-                     e_cap, w_cap, R * w_cap * 4)
-    return H264FrameOut(st.words, st.total_bits, st.flags[0] != 0, R), \
-        tuple(ref)
+    is given. ``precomputed_motion`` = (pred_y, pred_u, pred_v, mv)
+    skips the search. The reference planes are copied, not updated.
+    ``device`` as for :func:`h264_encode_yuv`."""
+    return _encode_p_frame(KERNEL_OPS, yf, uf, vf, ref_y, ref_u, ref_v, qp,
+                           header_pay, header_nb, frame_num, e_cap, w_cap,
+                           candidates, stripe_rows, precomputed_motion,
+                           qp_mb, device)

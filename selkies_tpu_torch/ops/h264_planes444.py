@@ -60,16 +60,17 @@ from . import _cuda
 from .colorspace import rgb_to_ycbcr
 from .h264_encode import (H264FrameOut, _check, _on_cpu, _se_event,
                           _ue_event, motion_select444, motion_select444_plain)
-from .h264_planes import (I64, _SCAN_RASTER, _ZZ_IJ, StepOps, _as_tensor,
-                          _blocks_rm, _cavlc_events, _clip1, _dequant_ldc_e,
-                          _dequant_plane, _expand, _frame_args, _gate_rows,
-                          _had4, _hdr_tensor, _mb_encode, _mb_encode_p,
-                          _merge_planes, _nc_planes, _pad16, _pad_left_mb,
-                          _plane_to_rm, _qpc_of, _quant_dc_e, _quant_plane,
-                          _t, _tc_gate_plane,
-                          cavlc_events_planes, fwd4_planes, inv4_planes,
-                          mb_qp_delta, mb_qp_delta_plain, pack_stream,
-                          pack_stream_plain, roi_qp_plane,
+from .h264_planes import (I64, _SCAN_RASTER, _ZZ_IJ, StepOps, _blocks_rm,
+                          _cavlc_events, _clip1, _dequant_ldc_e,
+                          _dequant_plane, _encode_p_frame, _expand,
+                          _frame_args, _gate_rows, _had4, _hdr_tensor,
+                          _mb_encode, _mb_encode_p, _merge_planes,
+                          _nc_planes, _pad16, _pad_left_mb, _plane_to_rm,
+                          _qpc_of, _quant_dc_e, _quant_plane, _t,
+                          _tc_gate_plane, cavlc_events_planes, fwd4_planes,
+                          inv4_planes, mb_qp_delta, mb_qp_delta_plain,
+                          pack_stream, pack_stream_plain, pack_stream_seats,
+                          pack_stream_seats_plain, roi_qp_plane,
                           roi_qp_plane_plain, row_damage_probe,
                           row_damage_probe_plain)
 from .h264_transform import _POS_CLS, ZIGZAG4
@@ -381,6 +382,11 @@ PLAIN_OPS_444 = StepOps(csc444_damage_plain, mb_encode_i444_plain,
                         pack_stream_plain, motion_select444_plain,
                         row_damage_probe_plain, roi_qp_plane_plain,
                         mb_qp_delta_plain)
+#: the sets with K4's seat entry (``n_seats`` given): the shards of a
+#: split frame (parallel/stripes.py, StripeShardedH264Session)
+SEAT_KERNEL_OPS_444 = KERNEL_OPS_444._replace(pack_stream=pack_stream_seats)
+SEAT_PLAIN_OPS_444 = PLAIN_OPS_444._replace(
+    pack_stream=pack_stream_seats_plain)
 
 
 def h264_encode_yuv444(yf, uf, vf, qp, header_pay, header_nb, e_cap: int,
@@ -414,28 +420,7 @@ def h264_encode_p_yuv444(yf, uf, vf, ref_y, ref_u, ref_v, qp, header_pay,
     K16 -> K4. ``precomputed_motion`` = (pred_y, pred_u, pred_v, mv)
     skips the search. The reference planes are copied, not updated.
     -> (H264FrameOut, (recon_y, recon_u, recon_v))."""
-    (y, u, v), qp, hp, hn, fn = _frame_args(yf, uf, vf, qp, header_pay,
-                                            header_nb, frame_num, device)
-    R, M = y.shape[0] // 16, y.shape[1] // 16
-    dev = y.device
-    send = torch.ones((R,), dtype=torch.int32, device=dev)
-    ref = [_as_tensor(p, dev).to(torch.uint8).clone()
-           for p in (ref_y, ref_u, ref_v)]
-    if precomputed_motion is not None:
-        *pred, mv = precomputed_motion
-        pred = [_as_tensor(p, dev).to(torch.uint8).contiguous()
-                for p in pred]
-        mv = _as_tensor(mv, dev).to(torch.int32).reshape(R, M, 2) \
-            .contiguous()
-    elif len(candidates) > 1:
-        win = 16 * (stripe_rows or R)
-        *pred, mv = motion_select444(y, *ref, qp, candidates, win)
-    else:
-        pred, mv = ref, None
-    lv, cbp, hdr_pay, hdr_nb = mb_encode_p444(y, u, v, qp, send, *pred, mv,
-                                              *ref)
-    ev_pay, ev_nb = cavlc_events444(lv, cbp, False)
-    st = pack_stream(hdr_pay, hdr_nb, ev_pay, ev_nb, hp, hn, fn, qp, False,
-                     e_cap, w_cap, R * w_cap * 4)
-    return H264FrameOut(st.words, st.total_bits, st.flags[0] != 0, R), \
-        tuple(ref)
+    return _encode_p_frame(KERNEL_OPS_444, yf, uf, vf, ref_y, ref_u, ref_v,
+                           qp, header_pay, header_nb, frame_num, e_cap,
+                           w_cap, candidates, stripe_rows, precomputed_motion,
+                           None, device)

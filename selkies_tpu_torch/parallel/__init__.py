@@ -5,8 +5,10 @@ tick driving every seat. On one H100 a seat is a batch index of the
 same kernels: each tick launches each kernel once for all seats
 (:class:`MultiSeatEncoder`, :class:`MultiSeatH264Encoder`), and
 :class:`~.capture.MultiSeatCapture` is the ScreenCapture-compatible loop
-over them. Seats across several cards and split-frame encoding
-(``parallel/stripes.py``) are not ported yet (ROADMAP A11b).
+over them. A device list whose entries are all one device holds every
+seat there. Split-frame H.264 (:mod:`.stripes`) takes one frame's MB rows
+as shards on the same pattern. Meshes of distinct devices raise
+(ROADMAP A11c).
 """
 
 from .capture import MultiSeatCapture

@@ -40,12 +40,9 @@ from ..ops.frames import synthetic_frames
 from ..ops.jpeg_entropy import scan_layout, scan_maps
 from ..ops.jpeg_pipeline import SEAT_KERNEL_OPS, JpegOps
 from ..trace import tracer as _tracer
+from .stripes import one_device
 
 logger = logging.getLogger("selkies_tpu_torch.parallel.seats")
-
-#: the ROADMAP item that seats across several cards wait for
-ACROSS_CARDS = "seats across cards (ROADMAP A11b)"
-
 
 @dataclasses.dataclass(frozen=True)
 class SeatMesh:
@@ -70,16 +67,15 @@ def seat_mesh(n_seats: int, devices: Optional[Sequence] = None) -> SeatMesh:
 
 
 def mesh_device(n_seats: int, devices, mesh) -> tuple[SeatMesh, torch.device]:
-    """The seat mesh and its one device. More than one device raises:
-    seats across cards are not ported yet."""
+    """The seat mesh and its one device. A mesh whose entries are all one
+    device holds every seat group there, as one stacked batch (the
+    reference's ``shard_map(vmap(step))`` over that many devices, seat for
+    seat); distinct devices raise (ROADMAP A11c)."""
     mesh = mesh if mesh is not None else seat_mesh(n_seats, devices)
     if n_seats % mesh.devices.size:
         raise ValueError(f"{mesh.devices.size} devices do not divide "
                          f"{n_seats} seats")
-    if mesh.devices.size > 1:
-        raise NotImplementedError(f"{ACROSS_CARDS} is not ported yet: "
-                                  f"{mesh.devices.size} devices given")
-    return mesh, mesh.devices[0]
+    return mesh, one_device(mesh.devices)
 
 
 def build_seats_step_fn(n_seats: int, width: int, stripe_h: int,

@@ -39,7 +39,8 @@ from selkies_tpu_torch.codecs import jpeg as jtab
 from selkies_tpu_torch.engine import CaptureSettings, ScreenCapture
 from selkies_tpu_torch.engine import capture as T_cap
 from selkies_tpu_torch.engine.encoder import JpegEncoderSession
-from selkies_tpu_torch.engine.h264_encoder import H264EncoderSession
+from selkies_tpu_torch.engine.h264_encoder import (H264EncoderSession,
+                                                   StripeShardedH264Session)
 from selkies_tpu_torch.ops import frames as F
 from selkies_tpu_torch.resilience import faults as _faults
 from selkies_tpu_torch.trace import tracer
@@ -270,13 +271,24 @@ def test_capture_spans_are_traced_per_slot():
 
 
 def test_capture_defaults_to_cuda_and_split_frame_raises():
+    """The loop runs on the card unless the CPU is named. Split-frame
+    (``stripe_devices=2``) on the loop's one device builds the sharded
+    session at one shard, as the reference does on one device; split
+    frame across distinct devices raises, naming ROADMAP A11c."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ScreenCapture("synthetic")
+    settings = CaptureSettings(**dict(SMALL, output_mode="h264",
+                                      stripe_devices=2))
     cap = ScreenCapture("synthetic", device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        cap.start_capture(lambda c: None, CaptureSettings(
-            **dict(SMALL, output_mode="h264", stripe_devices=2)))
+    cap.start_capture(lambda c: None, settings)
+    try:
+        assert isinstance(cap._session, StripeShardedH264Session)
+        assert cap._session.stripe_devices == 1
+    finally:
+        cap.stop_capture()
+    with pytest.raises(NotImplementedError, match="A11c"):
+        StripeShardedH264Session(settings, devices=["cpu", "meta"])
 
 
 class _RecordingLock:

@@ -14,8 +14,13 @@ kernels K13-K16 and K5's 4:4:4 entry the same cases, the CSC over all
 K9 and K10 one to four seats, one of whose rows overflows and spills,
 and both multi-seat encoders through a one-seat overflow; for ROI QP's
 K17 and K18 and K2-P's per-MB-QP entry random frames and planes at
-1080p with QPs 0..51, an unaligned K17 input and the ROI session) and
-must match it exactly, overflow flags included. Tolerance: 0.
+1080p with QPs 0..51, an unaligned K17 input and the ROI session; for
+split-frame K4's seat entry at 4:4:4's slot counts, K20 at widths that
+are not multiples of 16 with halos past both frame edges, K19 at 4:2:0
+and 4:4:4 with windows across the shard seams and odd negative vertical
+candidates (equal to K5 on the whole frame as well), the sharded frame
+entries and the sharded session at 4 shards) and must match it exactly,
+overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -674,13 +679,14 @@ def test_444_session_on_the_card(dev, partial):
 
 # ------------------------------------------------ multi-seat entries (K4,
 # K9, K10 with a seat axis) and the multi-seat encoders
-def _seat_pack_inputs(dev, rng, n_seats, rows, mb_w, intra):
+def _seat_pack_inputs(dev, rng, n_seats, rows, mb_w, intra, tables=HP):
     """K4 inputs for ``n_seats`` seats of ``rows`` MB rows: random slot
     events, with every slot of seat 0's last row carrying 16 bits, so
     that row overflows a small w_cap and spills into the words after it
     (never into seat 1's). P rows leave header slot 0 empty: K4 puts the
-    skip run there (K2-P writes no bits into it)."""
-    R, sb = n_seats * rows, HP.SB_I if intra else HP.SB_P
+    skip run there (K2-P writes no bits into it). ``tables`` gives the
+    block slots per MB: ``HP`` 4:2:0's, ``H4`` 4:4:4's."""
+    R, sb = n_seats * rows, tables.SB_I if intra else tables.SB_P
     hdr_nb = rng.integers(0, 8, (R, mb_w, HP.HDR_SLOTS)).astype(np.int32)
     if not intra:
         hdr_nb[..., 0] = 0
@@ -717,6 +723,23 @@ def test_pack_stream_seats(dev, n_seats, intra):
     k1, p1 = HP.pack_stream(*a), HP.pack_stream_seats_plain(*a, n_seats=1)
     _same([k1.words, k1.total_bits, k1.data, k1.byte_lens, k1.flags],
           [p1.words, p1.total_bits, p1.data[0], p1.byte_lens, p1.flags[0]])
+
+
+@pytest.mark.parametrize("n_seats", [1, 2, 4])
+@pytest.mark.parametrize("intra", [True, False])
+def test_pack_stream_seats_at_444_slot_counts(dev, n_seats, intra):
+    """K4's seat entry at 4:4:4's 1740 (I) / 1728 (P) block slots per MB,
+    the layout of the split frame's 4:4:4 shards."""
+    rows, mb_w = 2, 3
+    args = _seat_pack_inputs(dev, np.random.default_rng(40 + n_seats),
+                             n_seats, rows, mb_w, intra, H4)
+    for e_cap, w_cap, out_cap in ((10**6, 8192, 1 << 17),
+                                  (10**6, 512, 1 << 17),
+                                  (900, 8192, 128)):
+        a = (*args, intra, e_cap, w_cap, out_cap)
+        k = HP.pack_stream_seats(*a, n_seats=n_seats)
+        _same(k, HP.pack_stream_seats_plain(*a, n_seats=n_seats))
+        assert k.data.shape == (n_seats, out_cap)
 
 
 @pytest.mark.parametrize("geom", JPEG_GEOMS)
@@ -933,3 +956,172 @@ def test_roi_session_on_the_card(dev, bias):
     assert n_band > 0 and n == {"roi_qp_plane": n_band,
                                 "mb_qp_delta": n_band,
                                 "mb_encode_p_qp": n_band, "mb_encode_p": 0}
+
+
+# ------------------------------------------ split frame (K19, K20 and the
+# sharded frame entries and session)
+@pytest.mark.parametrize("shape", [(64, 24), (64, 40), (48, 8), (32, 7),
+                                   (1088, 960), (1088, 1920)])
+@pytest.mark.parametrize("band,halo", [(16, 3), (16, 24), (8, 13), (32, 0)])
+def test_halo_bands(dev, shape, band, halo):
+    """K20 at widths that are and are not multiples of 16, 8 and 4, with
+    halos that reach past both frame edges (24 rows around a 16-row
+    band)."""
+    H, W = shape
+    if H % band:
+        pytest.skip("band does not tile the plane")
+    plane = torch.as_tensor(np.random.default_rng(W + band).integers(
+        0, 256, (H, W), dtype=np.uint8), device=dev)
+    from selkies_tpu_torch.parallel import stripes as ST
+    _same([ST.halo_bands(plane, band, halo)],
+          [ST.halo_bands_plain(plane, band, halo)])
+
+
+def _halo_case(dev, H, W, full, n, seed):
+    rng = np.random.default_rng(seed)
+    cdiv = 1 if full else 2
+    ref = [torch.as_tensor(rng.integers(0, 256, s, dtype=np.uint8),
+                           device=dev)
+           for s in ((H, W), (H // cdiv, W // cdiv), (H // cdiv, W // cdiv))]
+    cur = torch.roll(ref[0], -3, 0)
+    cur[:, W // 2:] = torch.roll(ref[0], 5, 0)[:, W // 2:]
+    qp = torch.as_tensor(rng.integers(8, 48, H // 16).astype(np.int32),
+                         device=dev)
+    return cur, ref, qp
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("geom", [(64, 48, 4, 64), (64, 48, 4, 32),
+                                  (128, 64, 2, 128), (128, 64, 4, 64),
+                                  (96, 32, 3, 96)])
+@pytest.mark.parametrize("cands", ["odd", "default"])
+def test_motion_select_halo(dev, full, geom, cands):
+    """K19 (4:2:0 and 4:4:4) against its plain version and against K5 on
+    the whole frame, (H, W, shards, window rows): whole-frame windows over
+    2, 3 and 4 shards and windows of two shards each; odd and negative
+    vertical candidates, scrolls both ways across the seams."""
+    from selkies_tpu_torch.parallel import stripes as ST
+    H, W, n, win = geom
+    cands = ((0, 0), (3, 0), (-3, 0), (-5, 1), (1, -1), (-1, 2)) \
+        if cands == "odd" else TE.scroll_candidates()
+    cur, ref, qp = _halo_case(dev, H, W, full, n, H + W + n)
+    band = H // n
+    vmax = max(abs(dy) for dy, _ in cands)
+    halo_c = vmax if full else vmax // 2 + 1
+    cband = band if full else band // 2
+    bands = [ST.halo_bands(ref[0], band, vmax)] + [
+        ST.halo_bands(p, cband, halo_c) for p in ref[1:]]
+    if full:
+        kern, plain = ST.motion_select_halo444, ST.motion_select_halo444_plain
+        k5 = TE.motion_select444
+    else:
+        kern, plain = ST.motion_select_halo, ST.motion_select_halo_plain
+        k5 = TE.motion_select
+    got = kern(cur, *bands, qp, cands, win)
+    _same(got, plain(cur, *bands, qp, cands, win))
+    _same(got, k5(cur, *ref, qp, cands, win))
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_sharded_frames_on_the_card(dev, full, monkeypatch):
+    """The sharded frame entries on the card (kernels) against their
+    plain run on the card and the unsharded frame entries: I at 2 and 4
+    shards, P with whole windows a shard, P across the halo, and 3 rows
+    padded over 2 shards."""
+    from selkies_tpu_torch.parallel import stripes as ST
+    enc_i = H4.h264_encode_yuv444 if full else HP.h264_encode_yuv
+    enc_p = H4.h264_encode_p_yuv444 if full else HP.h264_encode_p_yuv
+    H, W = 128, 64
+    cdiv = 1 if full else 2
+    rng = np.random.default_rng(17)
+    planes = [torch.as_tensor(rng.integers(0, 256, s, dtype=np.uint8),
+                              device=dev)
+              for s in ((H, W), (H // cdiv, W // cdiv),
+                        (H // cdiv, W // cdiv))]
+    R, M = H // 16, W // 16
+    hdr = hcodec.slice_header_events(M, R)
+    p_hdr = hcodec.p_slice_header_events(M, R)
+    e_cap, w_cap = 10**6, 8192
+    ref, rec = enc_i(*planes, 26, *hdr, e_cap, w_cap, want_recon=True)
+    cur = [torch.roll(p, 3 if k == 0 or full else 1, 0)
+           for k, p in enumerate(planes)]
+    cands = TE.scroll_candidates(4, 2)
+    for n in (2, 4):
+        mesh = ST.stripe_mesh(R, devices=[dev] * n)
+        out, rec_k = ST.h264_encode_sharded(*planes, 26, *hdr, e_cap, w_cap,
+                                            mesh, fullcolor=full,
+                                            want_recon=True)
+        _same([out.words, out.total_bits, *rec_k],
+              [ref.words, ref.total_bits, *rec])
+        for sr in (2, R):
+            want, want_rec = enc_p(*cur, *rec, 30, *p_hdr, 1, e_cap, w_cap,
+                                   candidates=cands, stripe_rows=sr)
+            got, got_rec = ST.h264_encode_p_sharded(
+                *cur, *rec, 30, *p_hdr, 1, e_cap, w_cap, mesh,
+                candidates=cands, stripe_rows=sr, fullcolor=full)
+            with monkeypatch.context() as m:
+                m.setattr(ST, "SHARD_OPS", ST.SHARD_PLAIN_OPS)
+                pl, pl_rec = ST.h264_encode_p_sharded(
+                    *cur, *rec, 30, *p_hdr, 1, e_cap, w_cap, mesh,
+                    candidates=cands, stripe_rows=sr, fullcolor=full)
+            _same([got.words, got.total_bits, *got_rec],
+                  [want.words, want.total_bits, *want_rec])
+            _same([got.words, got.total_bits, *got_rec],
+                  [pl.words, pl.total_bits, *pl_rec])
+    p3 = [p[:48 // cdiv if k else 48] for k, p in enumerate(planes)]
+    hdr3 = hcodec.slice_header_events(M, 3)
+    want = enc_i(*p3, 26, *hdr3, e_cap, w_cap)
+    got = ST.h264_encode_sharded(*p3, 26, *hdr3, e_cap, w_cap,
+                                 ST.stripe_mesh(4, [dev] * 2), fullcolor=full)
+    _same([got.words, got.total_bits], [want.words, want.total_bits])
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_sharded_session_on_the_card(dev, full):
+    """StripeShardedH264Session at 4 shards on the card against the same
+    session on its plain versions and against H264EncoderSession, over
+    an IDR, scrolls and typing, with one overflow episode."""
+    from selkies_tpu_torch.engine.h264_encoder import (
+        H264EncoderSession, StripeShardedH264Session)
+    from selkies_tpu_torch.engine.types import CaptureSettings
+    from selkies_tpu_torch.ops import _cuda
+    kw = dict(capture_width=128, capture_height=128, stripe_height=32,
+              output_mode="h264", h264_motion_vrange=4,
+              h264_motion_hrange=2, fullcolor=full,
+              paint_over_delay_frames=2)
+    sh = StripeShardedH264Session(CaptureSettings(**kw, stripe_devices=4),
+                                  devices=[dev] * 4)
+    pl = StripeShardedH264Session(CaptureSettings(**kw, stripe_devices=4),
+                                  devices=[dev] * 4)
+    pl._ops = HP.SEAT_PLAIN_OPS if not full else H4.SEAT_PLAIN_OPS_444
+    pl._rebuild_steps()
+    one = H264EncoderSession(CaptureSettings(**kw), dev)
+    assert sh.stripe_devices == 4 and not sh._partial
+    f0, _ = _frames(dev, 128, 128)
+    typed = torch.roll(f0, 5, 0)
+    typed[40:48, 8:40] = 20
+    # frame 4 repeats frame 0 as a forced IDR with each shard's buffer cut
+    # to 2/3 of frame 0's largest stripe: it overflows, and the doubled
+    # buffers hold frame 5's IDR
+    frames = [f0, torch.roll(f0, 5, 0), typed, typed, f0, typed]
+    before = dict(_cuda.LAUNCHES)
+    for i, frame in enumerate(frames):
+        if i == 4:
+            for s in (sh, pl):
+                s._out_cap = 4 * (largest * 2 // 3)
+                s._rebuild_steps()
+        got = [s.finalize(s.encode(frame, force=i == 4)) for s in (sh, pl)]
+        tup = [[(c.stripe_y, c.is_idr, c.payload) for c in g] for g in got]
+        if i < 4:
+            want = list(one.finalize_stream(one.encode(frame)))
+            tup.append([(c.stripe_y, c.is_idr, c.payload) for c in want])
+            assert tup[0] == tup[2], i
+        if i == 0:
+            largest = max(len(c[2]) for c in tup[0])
+        assert tup[0] == tup[1], i
+        assert (tup[0] == []) == (i == 4) or i == 3, i
+        for k in ("_ref_y", "_ref_u", "_ref_v", "_prev", "_sent", "_fnum"):
+            assert torch.equal(getattr(sh, k), getattr(pl, k)), k
+    assert sh._cap_gen == 1 and all(c.is_idr for c in got[0])
+    assert _cuda.LAUNCHES["pack_stream_seats"] - before[
+        "pack_stream_seats"] == len(frames)

@@ -67,17 +67,18 @@ def test_engine_loop_modules_are_checked():
     assert set(LOOP_MODULES) <= set(PORT_MODULES)
 
 
-#: the multi-seat modules
+#: the multi-seat and split-frame modules
 SEAT_MODULES = [
     "selkies_tpu_torch.parallel", "selkies_tpu_torch.parallel.seats",
     "selkies_tpu_torch.parallel.h264_seats",
-    "selkies_tpu_torch.parallel.capture"]
+    "selkies_tpu_torch.parallel.capture",
+    "selkies_tpu_torch.parallel.stripes"]
 
 
 def test_multiseat_modules_are_checked():
-    """The multi-seat modules are among those the import check imports
-    (no jax, selkies_tpu or triton after importing them) and the AST scan
-    reads."""
+    """The multi-seat and split-frame modules are among those the import
+    check imports (no jax, selkies_tpu or triton after importing them)
+    and the AST scan reads."""
     assert set(SEAT_MODULES) <= set(PORT_MODULES)
 
 
@@ -177,15 +178,47 @@ def test_loop_entry_points_default_to_the_card(tmp_path, monkeypatch):
     assert watermark.maybe_load(settings, 64, 48, "cpu") is not None
 
 
-@pytest.mark.parametrize("change,item", [
-    ({"stripe_devices": 2}, "A11"),
-])
-def test_settings_outside_the_slice_raise(change, item):
+@pytest.mark.parametrize("cls", ["H264EncoderSession",
+                                 "StripeShardedH264Session"])
+def test_stripe_devices_on_one_device_is_the_plain_session(cls):
+    """``stripe_devices=2`` on one device: ``H264EncoderSession`` ignores
+    the setting, as the reference's does, and ``StripeShardedH264Session``
+    given one device resolves to one shard (gauged). Both equal the plain
+    session at 1 over an IDR, a scrolled P frame (the band path), an idle
+    frame and typing, chunk for chunk and state for state; the capture
+    loop builds the sharded session."""
+    from selkies_tpu_torch.engine import ScreenCapture
+    from selkies_tpu_torch.engine import state as port_state
+    from selkies_tpu_torch.server import metrics
     kw = dict(capture_width=64, capture_height=64, stripe_height=32,
-              output_mode="h264")
-    kw.update(change)
-    with pytest.raises(NotImplementedError, match=item):
-        port_enc.H264EncoderSession(CaptureSettings(**kw), device="cpu")
+              output_mode="h264", h264_motion_vrange=4,
+              h264_motion_hrange=2)
+    plain = port_enc.H264EncoderSession(CaptureSettings(**kw), device="cpu")
+    two = CaptureSettings(**kw, stripe_devices=2)
+    sess = getattr(port_enc, cls)(two, device="cpu")
+    if cls == "StripeShardedH264Session":
+        assert sess.stripe_devices == 1
+        assert metrics._gauges.get(("selkies_stripe_devices", ())) == 1.0
+    f = np.random.default_rng(5).integers(0, 256, (64, 64, 3),
+                                          dtype=np.uint8)
+    typed = np.roll(f, 3, axis=0)
+    typed[40:46, 8:20] = 255
+    for frame in (f, np.roll(f, 3, axis=0), np.roll(f, 3, axis=0), typed):
+        a = plain.finalize(plain.encode(frame))
+        b = sess.finalize(sess.encode(frame))
+        assert [dataclasses.astuple(c) for c in a] \
+            == [dataclasses.astuple(c) for c in b]
+        assert plain.last_band_rows == sess.last_band_rows
+    sa, sb = (port_state.session_state_to_numpy(x) for x in (plain, sess))
+    for k in sa:
+        assert np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])), k
+    cap = ScreenCapture("synthetic", device="cpu")
+    cap.start_capture(lambda chunk: None, two)
+    try:
+        assert type(cap._session).__name__ == "StripeShardedH264Session"
+        assert cap._session.stripe_devices == 1
+    finally:
+        cap.stop_capture()
 
 
 def _encode_two_frames(settings):

@@ -270,9 +270,39 @@ def test_seat_mesh_keeps_the_divide_rule(n):
         == j_seat_mesh(n).devices.size
 
 
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_seats_over_a_device_list_equal_jax_on_as_many(jax_run, n_dev):
+    """4 seats on ``["cpu"] * n_dev``: a mesh of ``n_dev`` entries, the
+    seat groups one stacked batch on the one device, seat for seat equal
+    to the reference encoder over ``n_dev`` devices (4: the whole script;
+    2: its first two ticks, one program)."""
+    if n_dev == N:
+        log = jax_run[1]
+    else:
+        enc = JMulti(JSettings(**SMALL), N, devices=jax.devices()[:n_dev])
+        assert enc.mesh.devices.size == n_dev
+        enc._out_cap = OUT_CAP
+        enc._step = enc._build_step()
+        log = [(_astuples(_step(enc, jax.device_put(
+            frames, enc.input_sharding), force_all, quality)),
+            _jax_state(enc))
+            for _, frames, force_all, quality in script()[:2]]
+    port = MultiSeatEncoder(CaptureSettings(**SMALL), N,
+                            devices=["cpu"] * n_dev)
+    port._out_cap = OUT_CAP
+    port._rebuild_steps()
+    assert port.mesh.devices.size == n_dev and port.device.type == "cpu"
+    for (name, frames, force_all, quality), (want, state) in zip(script(),
+                                                                 log):
+        got = _step(port, frames, force_all, quality)
+        assert _astuples(got) == want, name
+        _assert_state(port, state, name)
+
+
 def test_seats_across_devices_raise():
-    with pytest.raises(NotImplementedError, match="A11b"):
-        MultiSeatEncoder(CaptureSettings(**SMALL), 4, devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="A11c"):
+        MultiSeatEncoder(CaptureSettings(**SMALL), 4,
+                         devices=["cpu", "meta"])
     with pytest.raises(ValueError, match="divide"):
         MultiSeatEncoder(CaptureSettings(**SMALL), 4,
                          mesh=seat_mesh(3, ["cpu"] * 3))

@@ -35,7 +35,7 @@ from selkies_tpu_torch.engine.h264_encoder import H264EncoderSession
 from selkies_tpu_torch.engine.types import CaptureSettings
 from selkies_tpu_torch.ops import frames as F
 from selkies_tpu_torch.ops import h264_planes as HP
-from selkies_tpu_torch.parallel import MultiSeatH264Encoder
+from selkies_tpu_torch.parallel import MultiSeatH264Encoder, seat_mesh
 
 torch.set_num_threads(1)
 
@@ -236,10 +236,37 @@ def test_stacked_step_equals_independent_sessions():
                                    getattr(s, key)), (name, k, key)
 
 
+@pytest.mark.parametrize("n_dev", [2, 4])
+def test_seats_over_a_device_list_equal_jax_on_as_many(jax_run, n_dev):
+    """4 seats on ``["cpu"] * n_dev``: a mesh of ``n_dev`` entries, the
+    seat groups one stacked batch on the one device, seat for seat equal
+    to the reference encoder over ``n_dev`` devices (4: the whole script;
+    2: its first two ticks, one program)."""
+    if n_dev == N:
+        log = jax_run[1]
+    else:
+        enc = _shrink(JMulti(JSettings(**SETTINGS), N,
+                             devices=jax.devices()[:n_dev]), True)
+        assert enc.mesh.devices.size == n_dev
+        log = [(_astuples(_step(enc, jax.device_put(frames,
+                                                    enc.input_sharding),
+                                force, qp)), _jax_state(enc))
+               for _, frames, force, qp in script()[:2]]
+    port = _shrink(MultiSeatH264Encoder(CaptureSettings(**SETTINGS), N,
+                                        devices=["cpu"] * n_dev), False)
+    assert port.mesh.devices.size == n_dev and port.device.type == "cpu"
+    for (name, frames, force, qp), (want, state) in zip(script(), log):
+        assert _astuples(_step(port, frames, force, qp)) == want, name
+        _assert_state(port, state, name)
+
+
 def test_seats_across_devices_raise():
-    with pytest.raises(NotImplementedError, match="A11b"):
+    with pytest.raises(NotImplementedError, match="A11c"):
         MultiSeatH264Encoder(CaptureSettings(**SETTINGS), 4,
-                             devices=["cpu"] * 4)
+                             devices=["cpu", "meta"])
+    with pytest.raises(ValueError, match="divide"):
+        MultiSeatH264Encoder(CaptureSettings(**SETTINGS), 4,
+                             mesh=seat_mesh(3, ["cpu"] * 3))
 
 
 def _pack_inputs(rng, n_seats, rows, mb_w, w_cap_bits, intra):
