@@ -85,7 +85,12 @@ its path to have launched. Then each kernel is held against its plain
 version at the 1080p shapes of the main path (tolerance 0: every output
 is an integer) and timed with CUDA events beside the plain version, its
 bound and, where one exists, one PyTorch call computing the same
-function. Exits non-zero on any mismatch, launch error or kernel a path
+function. K3 and K4 are also timed on the P inputs, on bands of 4 and 16
+rows of them, at 4:4:4, at 1, 2, 4 and 8 seats and on 4 split-frame
+shards (the "K3 / K4 timing points" line), and the main path's three
+step shapes (stock I, full-frame P band, one-stripe P band) are timed
+on the device between CUDA events, the host's enqueue hidden behind a
+spin kernel (the "step device times" line). Exits non-zero on any mismatch, launch error or kernel a path
 did not launch; the last line is the device record. Needs no network and
 one card.
 """
@@ -546,12 +551,13 @@ def flush_l2(buf) -> None:
 
 
 def time_fn(fn, reps: int, restore=None, flush=None,
-            hide_launch: bool = False) -> float:
+            hide_launch: bool = False, spin: int = 2_000_000) -> float:
     """Median per-call time (ms) between CUDA events; ``restore`` resets
     in-place inputs and ``flush`` evicts L2, both untimed. With
-    ``hide_launch`` a spin kernel runs first so the host has enqueued the
-    call before the first event fires: the time is then device time
-    only (for the kernels; the plain versions wait on the host)."""
+    ``hide_launch`` a spin kernel of ``spin`` cycles runs first so the
+    host has enqueued the call before the first event fires: the time is
+    then device time only (for the kernels; the plain versions wait on
+    the host)."""
     times = []
     for _ in range(reps):
         if restore is not None:
@@ -559,7 +565,7 @@ def time_fn(fn, reps: int, restore=None, flush=None,
         if flush is not None:
             flush()
         if hide_launch:
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -584,6 +590,21 @@ def max_abs_err(xs, ys) -> int:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound_ms(by: int, ops: int) -> float:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the fp32 rate, whichever is larger (ms)."""
+    return max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+
+
+#: K3 / K4 timing points beyond the kernels line: shape -> record
+POINTS: dict = {}
+
+
+def point(name: str, ms: float, by: int, ops: int, pms=None) -> None:
+    POINTS[name] = {"ms": ms, "bound_ms": bound_ms(by, ops),
+                    "plain_ms": pms}
 
 
 def kernel_checks(frames, sess, grown) -> dict:
@@ -713,19 +734,25 @@ def kernel_checks(frames, sess, grown) -> dict:
     out["row_damage_probe"] = (err, ms, pms, nbytes(f1, f0, ko),
                                f1.numel(), lib)
 
-    # K3 and K4 on the K2 outputs of both modes
+    # K3 and K4 on the K2 outputs of both modes, timed at both; the P
+    # inputs also through bands of 4 and 16 rows (the band step's
+    # one-stripe and four-stripe shapes: fresh K2/K3 outputs, the
+    # session's header rows sliced)
     for intra, key in ((True, "mb_encode_i"), (False, "mb_encode_p")):
+        mode = "I" if intra else "P"
         lv, cbp, hp, hn = res[key][0]
         ko = HP.cavlc_events(lv, cbp, intra)
         po = HP.cavlc_events_plain(lv, cbp, intra)
         err = max_abs_err(ko, po)
         check(err == 0, f"cavlc_events (intra={intra}) differs (err {err})")
+        ms = time_fn(lambda: HP.cavlc_events(lv, cbp, intra), 20,
+                     flush=flush, hide_launch=True)
+        pms = time_fn(lambda: HP.cavlc_events_plain(lv, cbp, intra), 3)
+        rec = (err, ms, pms, nbytes(lv, cbp, *ko), 30 * 36 * 27 * R * M,
+               None)
+        point(f"cavlc_events {mode}", ms, *rec[3:5], pms)
         if intra:
-            ms = time_fn(lambda: HP.cavlc_events(lv, cbp, True), 20,
-                         flush=flush, hide_launch=True)
-            pms = time_fn(lambda: HP.cavlc_events_plain(lv, cbp, True), 3)
-            out["cavlc_events"] = (err, ms, pms, nbytes(lv, cbp, *ko),
-                                   30 * 36 * 27 * R * M, None)
+            out["cavlc_events"] = rec
         row_hp = sess._hdr_pay if intra else sess._p_hdr_pay
         row_hn = sess._hdr_nb if intra else sess._p_hdr_nb
         row_id = torch.arange(R, dtype=torch.int32, device=dev) % 16
@@ -742,13 +769,40 @@ def kernel_checks(frames, sess, grown) -> dict:
             if tag == "overflow":
                 check(int(k4.flags[0]) == 1 and int(k4.flags[1]) == 1,
                       "pack_stream overflow flags not raised")
-            elif intra and tag == "stock":
+            elif tag == "stock":
                 ms = time_fn(lambda: HP.pack_stream(*args), 20, flush=flush,
                              hide_launch=True)
                 pms = time_fn(lambda: HP.pack_stream_plain(*args), 3)
-                out["pack_stream"] = (err, ms, pms,
-                                      nbytes(hp, hn, *ko, *k4),
-                                      10 * ko[1].numel(), None)
+                rec = (err, ms, pms, nbytes(hp, hn, *ko, *k4),
+                       10 * ko[1].numel(), None)
+                point(f"pack_stream {mode}", ms, *rec[3:5], pms)
+                if intra:
+                    out["pack_stream"] = rec
+        if intra:
+            continue
+        for n in (rps, 4 * rps):
+            r0 = (R // 2) // rps * rps
+            band = slice(r0, r0 + n)
+            blv, bcbp, bhp, bhn = (t[band].clone() for t in res[key][0])
+            bev = HP.cavlc_events(blv, bcbp, False)
+            err = max_abs_err(bev, HP.cavlc_events_plain(blv, bcbp, False))
+            check(err == 0, f"cavlc_events ({n}-row band) differs "
+                  f"(err {err})")
+            ms = time_fn(lambda: HP.cavlc_events(blv, bcbp, False), 20,
+                         flush=flush, hide_launch=True)
+            point(f"cavlc_events P band{n}", ms, nbytes(blv, bcbp, *bev),
+                  30 * 36 * 27 * n * M)
+            args = (bhp, bhn, *bev, row_hp[band], row_hn[band],
+                    row_id[band], qp[band], False, sess._e_cap,
+                    sess._w_cap, sess._out_cap)
+            k4 = HP.pack_stream(*args)
+            err = max_abs_err(k4, HP.pack_stream_plain(*args))
+            check(err == 0, f"pack_stream ({n}-row band) differs "
+                  f"(err {err})")
+            ms = time_fn(lambda: HP.pack_stream(*args), 20, flush=flush,
+                         hide_launch=True)
+            point(f"pack_stream P band{n}", ms,
+                  nbytes(bhp, bhn, *bev, *k4), 10 * bev[1].numel())
     return out
 
 
@@ -1165,6 +1219,67 @@ def frame_times(settings, cases: dict, reps: int = 7) -> dict:
         res[kind] = {"encode_ms": statistics.median(enc),
                      "encode_finalize_ms": statistics.median(ts),
                      "band_rows": sess.last_band_rows}
+    return res
+
+
+def step_device_times(dsettings, base, scroll, typed, reps: int = 7
+                      ) -> dict:
+    """Device time (ms between CUDA events, median of ``reps``) of the
+    main path's three step shapes at 1080p: the stock I step, the
+    full-frame P band (a scroll) and the one-stripe P band (typing), on a
+    default session that has sent ``base`` as its IDR, its state restored
+    and L2 flushed before each rep. A spin kernel of about 11 ms runs
+    first, so the host has enqueued the whole step before the first
+    event fires; the host's enqueue time is returned beside it to show
+    that it fits under the spin."""
+    sess = H264EncoderSession(dsettings)
+    sess.finalize(sess.encode(base, force=True))
+    torch.cuda.synchronize()
+    g, dev = sess.grid, sess.device
+    rps, S, R = g.rows_per_stripe, g.n_stripes, sess.n_rows
+    keys = ("_prev", "_age", "_sent", "_fnum", "_ref_y", "_ref_u", "_ref_v")
+    saved = {k: getattr(sess, k).clone() for k in keys}
+
+    def restore():
+        for k in keys:
+            getattr(sess, k).copy_(saved[k])
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    # the band steps' control inputs, made before the timing (an upload
+    # inside the timed call would wait for the spin)
+    def ints(n, v=1):
+        return torch.full((n,), v, dtype=torch.int32, device=dev)
+    stripe = typing_rows(g.height).start // g.stripe_h
+    one = ints(S, 0)
+    one[stripe] = 1
+    full_step, band_step = sess._band_step(R), sess._band_step(rps)
+    st = (sess._prev, sess._sent, sess._fnum, sess._ref_y, sess._ref_u,
+          sess._ref_v)
+    full_ctl = (ints(R, sess.qp), ints(S), ints(R))
+    stripe_ctl = (ints(rps, sess.qp), one, ints(rps))
+    cases = {
+        "stock_I": lambda: sess._i_step(
+            base, sess._prev, sess._age, sess._sent, sess._fnum,
+            sess._ref_y, sess._ref_u, sess._ref_v, sess.qp, sess.paint_qp,
+            True, sess._hdr_pay, sess._hdr_nb),
+        "full_P_band": lambda: full_step(
+            scroll, *st, *full_ctl, 0, sess._p_hdr_pay, sess._p_hdr_nb),
+        "stripe_P_band": lambda: band_step(
+            typed, *st, *stripe_ctl, stripe * rps, sess._p_hdr_pay,
+            sess._p_hdr_nb)}
+    res = {}
+    for name, fn in cases.items():
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        ms = time_fn(fn, reps, restore=restore,
+                     flush=lambda: flush_l2(l2), hide_launch=True,
+                     spin=20_000_000)
+        res[name] = {"device_ms": ms, "host_enqueue_ms": host}
+    restore()
     return res
 
 
@@ -2351,6 +2466,26 @@ def stripe_kernel_checks(frames, dev) -> dict:
         *args, n_seats=STRIPE_SHARDS), 3)
     out["pack_stream_seats444"] = (err, ms, pms, nbytes(hp, hn, *ev, *k4),
                                    10 * ev[1].numel(), None)
+    # the same at 4:2:0: K4's seat entry on the four shards' I events
+    y, u, v = stripe_planes(f0, False)
+    e_cap, w_cap, _ = h264_buffer_caps(g)
+    rec = [torch.empty_like(p) for p in (y, u, v)]
+    lv, cbp, hp, hn = HP.mb_encode_i(y, u, v, qp, send, R, *rec)
+    ev = HP.cavlc_events(lv, cbp, True)
+    args = (hp, hn, *ev, row_hp, row_hn, row_id, qp, True, e_cap, w_cap,
+            (R // STRIPE_SHARDS) * w_cap * 4)
+    k4 = HP.pack_stream_seats(*args, n_seats=STRIPE_SHARDS)
+    err = max_abs_err(k4, HP.pack_stream_seats_plain(
+        *args, n_seats=STRIPE_SHARDS))
+    check(err == 0 and not bool(k4.flags.any()),
+          f"pack_stream_seats at 4:2:0 shards differs from plain (err {err})")
+    ms = time_fn(lambda: HP.pack_stream_seats(*args,
+                                              n_seats=STRIPE_SHARDS), 20,
+                 flush=flush, hide_launch=True)
+    point(f"pack_stream_seats {STRIPE_SHARDS} shards", ms,
+          nbytes(hp, hn, *ev, *k4), 10 * ev[1].numel())
+    point(f"pack_stream_seats444 {STRIPE_SHARDS} shards",
+          *(out["pack_stream_seats444"][k] for k in (1, 3, 4, 2)))
     return out
 
 
@@ -2384,7 +2519,8 @@ def main() -> int:
     print(f"kernel build: {info['seconds']:.1f} s -> {info['dir']}")
     for name, text in info["ptxas"].items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  ptxas[{name}]: {line.strip()}")
 
     # 1. the stock configuration
@@ -2539,7 +2675,9 @@ def main() -> int:
                                jpeg_buffer_caps(jg, False))
     for name, per_n in srecs.items():
         for n, (err, ms, pms, by, ops, _) in per_n.items():
-            t_b = max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+            if name == "pack_stream_seats":
+                point(f"pack_stream_seats S={n}", ms, by, ops, pms)
+            t_b = bound_ms(by, ops)
             print(f"  {name} at {n} seats: {ms:.4f} ms (plain {pms:.2f} "
                   f"ms, bound {t_b:.4f} ms)")
         recs[name] = per_n[SEATS]
@@ -2553,6 +2691,7 @@ def main() -> int:
     dtimes = frame_times(dsettings, {"I": (base, base, True),
                                      "scroll_P": (base, seq[1][1], False),
                                      "typing_P": (base, typed, False)})
+    step_times = step_device_times(dsettings, base, seq[1][1], typed)
     fdsettings = dataclasses.replace(dsettings, fullcolor=True)
     ftimes = frame_times(fdsettings, {"I": (base, base, True),
                                       "scroll_P": (base, seq[1][1], False),
@@ -2587,11 +2726,14 @@ def main() -> int:
     print(f"frame times, fullcolor default configuration (ms, host clock, "
           f"{g.width}x{g.height}, stock 4:4:4 caps, median of 7): "
           + json.dumps(ftimes))
+    print("step device times, default configuration (ms between CUDA "
+          f"events, {g.width}x{g.height}, stock caps, L2 flushed, median of "
+          "7): " + json.dumps(step_times))
     print(f"fullcolor path launches: {json.dumps(fc['launches'])}")
     for k, (err, ms, _, by, ops, _) in k4_444.items():
+        point(k, ms, by, ops)
         print(f"  {k} (K4 at the 4:4:4 slot count): {ms:.4f} ms, bound "
-              f"{max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3:.4f}"
-              " ms")
+              f"{bound_ms(by, ops):.4f} ms")
     print(f"frame times, jpeg (ms, host clock, {jg.width}x{jg.height}, "
           f"2x stock caps, median of 7): " + json.dumps(jtimes))
     print(f"stock path launches: {json.dumps(stock_launches)}")
@@ -2599,7 +2741,7 @@ def main() -> int:
     err, ms, pms, by, ops, lib = k6_stripes
     print(f"  row_damage_probe at stripe granularity ({jg.n_stripes} "
           f"stripes): {ms:.4f} ms (plain {pms:.2f} ms, bound "
-          f"{max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3:.4f} ms, "
+          f"{bound_ms(by, ops):.4f} ms, "
           f"library {lib:.4f} ms)")
     # library_ms: K6's one-expression torch counterpart, F.pad for K11
     # and index_select for K20; null elsewhere, since no single PyTorch
@@ -2639,6 +2781,9 @@ def main() -> int:
               f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
+    print("K3 / K4 timing points (ms between CUDA events after an L2 "
+          "flush, median of 20; bound and plain ms as in the kernels "
+          "line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")
     print(f"stripes path launches: {json.dumps(stripes['launches'])}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of its 1200 s "

@@ -175,9 +175,9 @@ extern "C" int jpeg_pack_seats(const int* payload, const uint8_t* nbits,
   jpeg_place_kernel<<<grid, threads, 0, st>>>(
       payload, nbits, start, M, total, w_cap,
       reinterpret_cast<unsigned*>(words));
-  launch_concat_bytes<true>(reinterpret_cast<const unsigned*>(words),
-                            total_bits, n_seats, per_seat, w_cap, out_cap,
-                            data, byte_lens, flags, st);
+  launch_concat_bytes(reinterpret_cast<const unsigned*>(words), total_bits,
+                      n_seats, per_seat, w_cap, out_cap, data, byte_lens,
+                      flags, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,183 +6,841 @@
 // events, P skip runs, tail events), and selkies_tpu/ops/stripes.py:
 // words_to_bytes_device (pad_ones=False) and concat_stripe_bytes.
 //
-// Bound on the H100: bytes: the ~36 MB event array of K3 is read once; the
-// words (6.3 MB at 1080p) and the byte buffer are written once. Design: two
-// grids on one stream. (1) One block per MB row: warps sum each MB's slot
-// bits; one thread walks the row for the skip runs and the exclusive MB
-// offsets (120 steps); then each warp takes an MB and places its slots 32
-// at a time, a warp prefix sum giving each slot's offset, every event
-// split into hi/lo words where it straddles. Words are combined with
-// atomicAdd, not atomicOr: the bit ranges are disjoint, so the two agree,
-// and where an overflowing row spills into the next row's words the sum
-// is what the reference's scatter-add computes. (2) The byte buffer of
-// stripe_bytes.cuh (zero-padded rows; 68 rows at 1080p).
+// Bound on the H100: bytes. The ~36 MB slot arrays of K3 are read once;
+// the words (6.3 MB at 1080p) and the byte buffer are written once. A row
+// packed by one block is held to what one SM pulls from memory and
+// issues (0.083 ms at 1080p on the H100), so a row is split over a
+// thread block cluster of P blocks (3 for a 1080p 4:2:0 frame, measured
+// faster than 2 or 4; up to 8 for a band of a few rows; as few as the
+// resident nb allows when seats fill the card): rank k packs the row's
+// MBs [k * Mb, (k + 1) * Mb).
+//
+// Width: a block keeps its MBs' nb slot bytes resident in shared memory,
+// kNbMax of them where two blocks share an SM; where 8 blocks cannot
+// hold a row so, up to what one block an SM holds (4:4:4 at 3840 px:
+// 52 KB a block); a row wider still (over ~888 MBs at 4:4:4's slot
+// counts) reads nb from device memory, once for the sums and again for
+// the placement. Rows of up to 8 * kMaxMBs = 1056 MBs (16896 px) are
+// packed, past the widest row H.264 allows (level 6.2: sqrt(8 * 139264)
+// = 1055 MBs); a wider one is refused (cudaErrorInvalidValue).
+//
+// Design: three grids on one stream, (2) and (3) each launched behind the
+// one before it (programmatic dependent launch: its blocks wait inside,
+// so its launch overlaps the end of the grid before).
+// (1) pack_rows_kernel<false>, a cluster of P blocks a row (the rows of
+//     every seat back to back):
+//     - TMA bulk copies (cp.async.bulk, completion on an mbarrier) bring
+//       the block's nb slot bytes and header slots into shared memory,
+//       where they stay, and its slot payloads through a two-stage ring,
+//       C MBs a stage, which the block's last warp refills as soon as the
+//       other warps have released a stage (an "empty" mbarrier, no block
+//       barrier between stages); each copy is the 16-byte-aligned span
+//       that covers its data (nb rows are only 4-byte aligned an MB).
+//     - Each warp sums an MB's bits from the resident nb (four slots a
+//       lane and instruction, one redux.sync a 256-slot step); one warp
+//       scans the block's MBs: an exclusive max-scan of "last coded MB"
+//       gives the P skip runs, an exclusive sum-scan the MB offsets.
+//     - The ranks trade their sums through distributed shared memory
+//       (bits, events, first and last coded MB), so each knows where its
+//       bits start in the row, the skip run of its first coded MB (which
+//       depends on the ranks before it), the row's total and its
+//       trailing skip run. Chosen over a decoupled look-back: a row's
+//       blocks are co-scheduled, and no flag or scratch memory is needed.
+//     - Warps place (MB, 256-slot step) tasks, eight slots a lane (one
+//       warp scan a step): a lane concatenates its events in a 64-bit
+//       register and shared-memory atomics add the (at most three) words
+//       it covers to the block's word buffer; a step whose nb bytes are
+//       all zero (gated-off blocks) is skipped.
+//     - A block's first word may belong to an earlier rank (the one whose
+//       bits cover the word's first bit): after a cluster barrier it is
+//       added into that rank's buffer through distributed shared memory;
+//       after a second, each block writes the words it owns with 16-byte
+//       stores, and a share of the zeros past the row's bits, so no
+//       memset precedes the kernel. Words past a block's 2048-word buffer
+//       (over 65536 bits) take global atomics into zeros their owner
+//       stored before the first barrier.
+// (2) pack_rows_kernel<true>, the same grid: only the clusters of rows
+//     whose bits exceed w_cap * 32 stay, redo the layout, and add the
+//     events past the row's words into the following rows' words (global
+//     atomics after grid (1)'s plain stores: the kernel boundary orders
+//     them). Words are combined by addition, as the reference's
+//     scatter-add: the bit ranges are disjoint, and where a row spills the
+//     sum is what the reference computes; a seat's rows never spill past
+//     its R * w_cap words.
+// (3) stream_bytes_kernel: the byte buffer (zero-padded rows back to
+//     back, zeros to out_cap), 16 bytes a thread: each block scans the
+//     seat's R row byte lengths with one warp, a thread finds its row by
+//     binary search and, where its 16 bytes lie inside one row's words,
+//     funnel-shifts five big-endian words into one 16-byte store. The
+//     first block of each seat writes the seat's byte lengths and flags
+//     (grid (1) leaves each row's event count in byte_lens for it).
 //
 // Seats: pack_stream_seats replaces the same functions vmapped over the
 // seat axis by selkies_tpu/parallel/h264_seats.py:MultiSeatH264Encoder.
-// _build (:98). The rows of S seats lie back to back (S * R blocks, one
-// launch a tick); every bound is the seat's own, as under vmap: a row's
-// words may spill into the next row's only up to the seat's R * w_cap
-// words (seat k's last row never reaches seat k + 1's first), and each
-// seat has its own flags pair and (out_cap,) byte buffer. pack_stream is
-// the S = 1 case.
+// _build (:98). The rows of S seats lie back to back (S * R row
+// clusters, one call a tick); every bound is the seat's own, as under
+// vmap: a row's words may spill into the next row's only up to the seat's
+// R * w_cap words (seat k's last row never reaches seat k + 1's first),
+// and each seat has its own flags pair and (out_cap,) byte buffer.
+// pack_stream is the S = 1 case.
 #include "h264_common.cuh"
-#include "stripe_bytes.cuh"
 
-struct RowCtx {
-  int pre_pay[6], pre_nb[6], pre_off[6];
-  int tail_pay[2], tail_nb[2], tail_off[2];
-  int n_ev;
+namespace {
+
+constexpr int kWords = 2048;        // a block's words in shared memory
+constexpr int kSteps = 7;           // 256-slot steps an MB, at most
+constexpr int kMaxMBs = 132;        // MBs a block
+constexpr int kMaxRank = 8;         // blocks a row (the cluster)
+constexpr int kNbMax = 36 * 1024;   // resident nb bytes a block, preferred
+constexpr int kThreads = 512;
+
+struct PackArgs {
+  const int* hdr_pay;
+  const int* hdr_nb;
+  const int* ev_pay;
+  const uint8_t* ev_nb;
+  const int* row_hdr_pay;
+  const int* row_hdr_nb;
+  const int* row_id;
+  const int* qp;
+  int SB, intra, R, M, e_cap, w_cap;
+  int P, Mb, C, nsteps;              // cluster, MBs a block / a stage
+  int nb_res;                        // nb resident in shared memory
+  int off_nb, off_hp, off_hn, off_ring, off_words, stage_bytes;
+  unsigned* words;
+  int* total_bits;
+  int* byte_lens;   // grid (1) leaves each row's event count here
 };
 
-__device__ __forceinline__ void put_event(unsigned* words, long long n_words,
-                                          long long goff, unsigned pay,
-                                          int nb) {
-  if (nb <= 0) return;
-  const long long w0 = goff >> 5;
-  const int rel = static_cast<int>(goff & 31);
-  const int sh = 32 - (rel + nb);
-  const unsigned hi = sh >= 0 ? (pay << sh) : (pay >> (-sh));
-  if (w0 < n_words) atomicAdd(&words[w0], hi);
-  if (sh < 0 && w0 + 1 < n_words) atomicAdd(&words[w0 + 1], pay << (32 + sh));
+// the fixed head of the dynamic shared memory
+struct alignas(16) Head {
+  unsigned long long bar_res, bar[2], empty[2];
+  int mb_bits[kMaxMBs], mb_cnt[kMaxMBs], hdr_bits[kMaxMBs];
+  int mb_start[kMaxMBs], skip_pay[kMaxMBs], skip_nb[kMaxMBs];
+  // each rank's sums, which it writes into every rank's copy: bits and
+  // events of its MBs (without its first coded MB's skip run), first and
+  // last coded MB (row index, -1 if none)
+  int x_bits[kMaxRank], x_nev[kMaxRank], x_first[kMaxRank],
+      x_last[kMaxRank];
+  int s_bit[kMaxRank + 1];   // each rank's first bit; [P]: the row's total
+  int pre_pay[HDR_SLOTS], pre_nb[HDR_SLOTS];
+  int base, own_sp, own_sn;  // this block's first MB bit, first skip run
+  int tail_off, tail_pay, tail_nb, nev;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// the shared address ``a`` of this block, in block ``rank`` of the cluster
+__device__ __forceinline__ unsigned map_rank(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(unsigned a, int v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" :: "r"(a), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int misalign(const void* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// the 16-byte-aligned span covering [src, src + bytes)
+__device__ __forceinline__ uintptr_t span_lo(const void* src) {
+  return reinterpret_cast<uintptr_t>(src) & ~static_cast<uintptr_t>(15);
+}
+
+__device__ __forceinline__ unsigned span_len(const void* src,
+                                             unsigned bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  return static_cast<unsigned>(
+      ((a + bytes + 15) & ~static_cast<uintptr_t>(15)) - span_lo(src));
+}
+
+// one thread: copies of spans (src[i], bytes[i]) to dst[i] (16-byte
+// aligned), completing on ``bar``
+template <int N>
+__device__ __forceinline__ void bulk_copies(char* const (&dst)[N],
+                                            const void* const (&src)[N],
+                                            const unsigned (&bytes)[N],
+                                            unsigned long long* bar) {
+  unsigned tx = 0;
+#pragma unroll
+  for (int i = 0; i < N; i++) tx += span_len(src[i], bytes[i]);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(tx) : "memory");
+#pragma unroll
+  for (int i = 0; i < N; i++)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(dst[i])), "l"(span_lo(src[i])),
+           "r"(span_len(src[i], bytes[i])), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// one thread: the payloads of the block's MBs [m0, m0 + n) into a stage
+__device__ __forceinline__ void issue_stage(const PackArgs& a, char* stage,
+                                            unsigned long long* bar,
+                                            size_t g_lo, int m0, int n) {
+  char* const dst[1] = {stage};
+  const void* const src[1] = {a.ev_pay + (g_lo + m0) * a.SB};
+  const unsigned bytes[1] = {4u * n * a.SB};
+  bulk_copies<1>(dst, src, bytes, bar);
+}
+
+// Where a row's word goes. Rows pass: below w_cap, into the block's
+// shared buffer (words ws .. ws + kWords) or past it a global atomic;
+// spill pass: only words past w_cap, up to the seat's end.
+template <bool SPILL>
+struct Sink {
+  unsigned sw;          // shared address of the block's words
+  unsigned* gw;         // the row's first global word
+  int ws, w_cap;
+  long long room;       // words from the row's first to the seat's end
+
+  __device__ __forceinline__ void add(int w, unsigned v) const {
+    if (!v) return;
+    if constexpr (SPILL) {
+      if (w >= w_cap && w < room) atomicAdd(&gw[w], v);
+    } else if (w < w_cap) {
+      const int i = w - ws;
+      if (i < kWords)
+        asm volatile("red.shared.add.u32 [%0], %1;"
+                     :: "r"(sw + 4u * static_cast<unsigned>(i)), "r"(v)
+                     : "memory");
+      else
+        atomicAdd(&gw[w], v);
+    }
+  }
+
+  // event (pay, nb > 0) at bit ``off`` of the row, MSB first
+  __device__ __forceinline__ void put(int off, unsigned pay, int nb) const {
+    const int w0 = off >> 5;
+    const int sh = 32 - ((off & 31) + nb);
+    add(w0, sh >= 0 ? pay << sh : pay >> (-sh));
+    if (sh < 0) add(w0 + 1, pay << (32 + sh));
+  }
+
+  // n (1..64) bits, right-aligned in v, at bit ``off`` of the row
+  __device__ __forceinline__ void put_run(int off, unsigned long long v,
+                                          int n) const {
+    const int w0 = off >> 5, sh = 96 - (off & 31) - n;   // 1..95
+    if (sh >= 64) {
+      add(w0, static_cast<unsigned>(v << (sh - 64)));
+    } else {
+      const unsigned long long lo = v << sh;
+      add(w0, static_cast<unsigned>(v >> (64 - sh)));
+      add(w0 + 1, static_cast<unsigned>(lo >> 32));
+      add(w0 + 2, static_cast<unsigned>(lo));
+    }
+  }
+
+  // a lane's events in bit order, summed into whole words
+  // (word ``cw``, sum ``cv``) before they are added: one atomic a word
+  // a lane, not one an event
+  __device__ __forceinline__ void merge(int& cw, unsigned& cv, int off,
+                                        unsigned pay, int nb) const {
+    const int w0 = off >> 5;
+    const int sh = 32 - ((off & 31) + nb);
+    if (w0 != cw) {
+      add(cw, cv);
+      cw = w0;
+      cv = 0u;
+    }
+    cv += sh >= 0 ? pay << sh : pay >> (-sh);
+    if (sh < 0) {
+      add(cw, cv);
+      cw = w0 + 1;
+      cv = pay << (32 + sh);
+    }
+  }
+};
 
 __device__ __forceinline__ void qp_event(int qp, int* p, int* n) {
   const int d = qp - 26;
   ue_event(d > 0 ? 2 * d - 1 : -2 * d, p, n);
 }
 
-__global__ void pack_rows_kernel(const int* __restrict__ hdr_pay,
-                                 const int* __restrict__ hdr_nb,
-                                 const int* __restrict__ ev_pay,
-                                 const uint8_t* __restrict__ ev_nb, int SB,
-                                 const int* __restrict__ row_hdr_pay,
-                                 const int* __restrict__ row_hdr_nb,
-                                 const int* __restrict__ row_id,
-                                 const int* __restrict__ qp_rows, int intra,
-                                 int R, int M, int e_cap, int w_cap,
-                                 unsigned* words, int* __restrict__ total_bits,
-                                 int* __restrict__ flags) {
-  // blockIdx.x runs over every seat's rows; R rows a seat
-  const int seat = blockIdx.x / R;
-  words += static_cast<long long>(seat) * R * w_cap;
-  flags += 2 * seat;
-  extern __shared__ int sm[];
-  int* mb_bits = sm;              // M
-  int* mb_start = sm + M;         // M
-  int* skip_pay = sm + 2 * M;     // M
-  int* skip_nb = sm + 3 * M;      // M
-  __shared__ RowCtx ctx;
-  const int r = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int NS = HDR_SLOTS + SB;
-  if (threadIdx.x == 0) ctx.n_ev = 0;
-  __syncthreads();
+__device__ __forceinline__ int warp_incl_sum(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
 
-  // ---- per-MB slot bits and event counts
-  for (int m = warp; m < M; m += nwarps) {
-    const size_t g = static_cast<size_t>(r) * M + m;
-    int bits = 0, cnt = 0;
-    for (int s = lane; s < NS; s += 32) {
-      const int n = s < HDR_SLOTS ? hdr_nb[g * HDR_SLOTS + s]
-                                  : ev_nb[g * SB + (s - HDR_SLOTS)];
-      bits += n;
-      cnt += n > 0;
+__device__ __forceinline__ int warp_sum(int v) {
+  return __reduce_add_sync(0xffffffffu, v);   // one redux.sync
+}
+
+// The block's MBs of its row, where their slots sit in shared memory.
+struct Block {
+  const uint8_t* nb;    // nb, (nm, SB), 4-byte aligned an MB: resident,
+                        // or in device memory (rows too wide for that)
+  const int* hp;        // resident header slots, (nm, 6)
+  const int* hn;
+  int pay_mis;          // where the payloads start inside a stage
+  int m_lo, nm;         // the block's first MB of the row, its MBs
+  size_t g_lo;          // its first MB over every row
+};
+
+// task t of the block's MB j, whose payloads are in ``stage`` from MB m0:
+// t < 0 its header slots (lanes 0-5; slot 0 of a P MB is its skip run),
+// else its 256-slot step t, eight slots a lane: a lane's events are
+// concatenated in a 64-bit register and added as up to three words (a
+// lane over 64 bits adds them event by event)
+template <bool SPILL>
+__device__ __forceinline__ void place_task(const PackArgs& a, const Block& b,
+                                           const Head& h,
+                                           const Sink<SPILL>& sink,
+                                           const int* step_off,
+                                           const char* stage, int m0, int j,
+                                           int t, int lane) {
+  if (t < 0) {
+    int p = 0, n = 0;
+    if (lane == 0 && !a.intra) {
+      p = h.skip_pay[j];
+      n = h.skip_nb[j];
+    } else if (lane < HDR_SLOTS) {
+      p = b.hp[j * HDR_SLOTS + lane];
+      n = b.hn[j * HDR_SLOTS + lane];
     }
-    for (int o = 16; o > 0; o >>= 1) {
-      bits += __shfl_down_sync(0xffffffffu, bits, o);
-      cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+    const int incl = warp_incl_sum(n, lane);
+    if (n > 0)
+      sink.put(h.mb_start[j] + incl - n, static_cast<unsigned>(p), n);
+    return;
+  }
+  const int nq = a.SB >> 2, q = 64 * t + 2 * lane;
+  const unsigned* nbw = reinterpret_cast<const unsigned*>(b.nb + j * a.SB);
+  const unsigned w0 = q < nq ? nbw[q] : 0u;
+  const unsigned w1 = q + 1 < nq ? nbw[q + 1] : 0u;
+  if (!__any_sync(0xffffffffu, (w0 | w1) != 0)) return;
+  const int s8 = static_cast<int>(__dp4a(w0, 0x01010101u, 0u)
+                                  + __dp4a(w1, 0x01010101u, 0u));
+  const int incl = warp_incl_sum(s8, lane);
+  if (!s8) return;
+  // a stage holds 16 bytes of slack past its last payload
+  const int* pay = reinterpret_cast<const int*>(stage + b.pay_mis)
+                   + static_cast<size_t>(j - m0) * a.SB + 4 * q;
+  int v[8];
+  if (b.pay_mis == 0) {
+    const int4 x = reinterpret_cast<const int4*>(pay)[0];
+    const int4 y = reinterpret_cast<const int4*>(pay)[1];
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+    v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; k++) v[k] = pay[k];
+  }
+  int off = step_off[j * a.nsteps + t] + incl - s8;
+  if (s8 <= 64) {
+    unsigned long long acc = 0ull;
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      const int nb = ((k < 4 ? w0 : w1) >> (8 * (k & 3))) & 0xFF;
+      acc = (acc << nb) | (nb ? static_cast<unsigned>(v[k]) : 0u);
     }
+    sink.put_run(off, acc, s8);
+  } else {
+    int cw = -1;
+    unsigned cv = 0u;
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      const int nb = ((k < 4 ? w0 : w1) >> (8 * (k & 3))) & 0xFF;
+      if (nb) sink.merge(cw, cv, off, static_cast<unsigned>(v[k]), nb);
+      off += nb;
+    }
+    sink.add(cw, cv);
+  }
+}
+
+// words [i0, i1) of a row, each val(i), with 16-byte stores where the
+// address allows
+template <class Val>
+__device__ __forceinline__ void store_words(unsigned* g, int i0, int i1,
+                                            Val val) {
+  if (i1 <= i0) return;
+  const int n = i1 - i0;
+  const int head = min(n, static_cast<int>(
+      ((16 - (reinterpret_cast<uintptr_t>(g + i0) & 15)) & 15) >> 2));
+  for (int i = threadIdx.x; i < head; i += blockDim.x) g[i0 + i] = val(i0 + i);
+  const int b0 = i0 + head, nq = (n - head) >> 2;
+  uint4* gq = reinterpret_cast<uint4*>(g + b0);
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+    const int i = b0 + 4 * q;
+    gq[q] = make_uint4(val(i), val(i + 1), val(i + 2), val(i + 3));
+  }
+  for (int i = b0 + 4 * nq + threadIdx.x; i < i1; i += blockDim.x)
+    g[i] = val(i);
+}
+
+// SPILL false: grid (1); true: grid (2). A cluster of P blocks a row,
+// rank k packing the row's MBs [k * Mb, (k + 1) * Mb).
+template <bool SPILL>
+__global__ void __launch_bounds__(kThreads, 1)
+pack_rows_kernel(const PackArgs a) {
+  extern __shared__ __align__(16) char smem[];
+  Head& h = *reinterpret_cast<Head*>(smem);
+  int* step_off = reinterpret_cast<int*>(smem + sizeof(Head));
+  unsigned* sw = reinterpret_cast<unsigned*>(smem + a.off_words);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5, P = a.P, rank = cluster_rank();
+  const int r = blockIdx.x / P;
+  if constexpr (SPILL) {
+    // launched behind grid (1) (programmatic dependent launch): let grid
+    // (3) launch, wait for grid (1)'s words and totals
+    asm volatile("griddepcontrol.launch_dependents;\n"
+                 "griddepcontrol.wait;" ::: "memory");
+    if (a.total_bits[r] <= a.w_cap * 32) return;   // the whole cluster
+  }
+  Block b;
+  b.m_lo = rank * a.Mb;
+  b.nm = max(0, min(a.Mb, a.M - b.m_lo));
+  b.g_lo = static_cast<size_t>(r) * a.M + b.m_lo;
+  const uint8_t* g_nb = a.ev_nb + b.g_lo * a.SB;
+  const int* g_hp = a.hdr_pay + b.g_lo * HDR_SLOTS;
+  const int* g_hn = a.hdr_nb + b.g_lo * HDR_SLOTS;
+  b.nb = a.nb_res ? reinterpret_cast<const uint8_t*>(smem + a.off_nb
+                                                      + misalign(g_nb))
+                  : g_nb;
+  b.hp = reinterpret_cast<const int*>(smem + a.off_hp + misalign(g_hp));
+  b.hn = reinterpret_cast<const int*>(smem + a.off_hn + misalign(g_hn));
+  b.pay_mis = misalign(a.ev_pay + b.g_lo * a.SB);
+  char* ring = smem + a.off_ring;
+  const int nchunks = (b.nm + a.C - 1) / a.C;
+  if (tid == 0) {
+    mbar_init(&h.bar_res, 1);
+    mbar_init(&h.bar[0], 1);
+    mbar_init(&h.bar[1], 1);
+    mbar_init(&h.empty[0], nw - 1);
+    mbar_init(&h.empty[1], nw - 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (b.nm > 0) {
+      // resident: the header slots and nb; the ring: two stages ahead
+      char* const dst[3] = {smem + a.off_hp, smem + a.off_hn,
+                            smem + a.off_nb};
+      const void* const src[3] = {g_hp, g_hn, g_nb};
+      const unsigned bytes[3] = {4u * b.nm * HDR_SLOTS,
+                                 4u * b.nm * HDR_SLOTS, 1u * b.nm * a.SB};
+      if (a.nb_res) {
+        bulk_copies<3>(dst, src, bytes, &h.bar_res);
+      } else {
+        char* const dst2[2] = {dst[0], dst[1]};
+        const void* const src2[2] = {src[0], src[1]};
+        const unsigned bytes2[2] = {bytes[0], bytes[1]};
+        bulk_copies<2>(dst2, src2, bytes2, &h.bar_res);
+      }
+      for (int k = 0; k < 2 && k < nchunks; k++)
+        issue_stage(a, ring + k * a.stage_bytes, &h.bar[k], b.g_lo,
+                    k * a.C, min(a.C, b.nm - k * a.C));
+    }
+  }
+  if constexpr (!SPILL) {
+    for (int i = tid; i < kWords; i += blockDim.x) sw[i] = 0u;
+  }
+  // the row prefix: [hdr(2), idr_pic_id | frame_num, flags, qp, deblock]
+  if (tid < HDR_SLOTS) {
+    int p = 0, n = 0;
+    if (tid < 2) {
+      p = a.row_hdr_pay[2 * r + tid];
+      n = a.row_hdr_nb[2 * r + tid];
+    } else if (tid == 2) {
+      if (a.intra) ue_event(a.row_id[r], &p, &n);        // idr_pic_id
+      else { p = a.row_id[r] & 0xF; n = 4; }              // frame_num
+    } else if (tid == 3) {
+      n = a.intra ? 2 : 3;                                // '00' / '000'
+    } else if (tid == 4) {
+      qp_event(a.qp[r], &p, &n);
+    } else {
+      p = 2; n = 3;                                       // deblock ue(1)
+    }
+    h.pre_pay[tid] = p;
+    h.pre_nb[tid] = n;
+  }
+  __syncthreads();
+  if (b.nm > 0) mbar_wait(&h.bar_res, 0);
+  // MB bits, each 256-slot step's bits, event counts (P: slot 0 is the
+  // skip run, added by the scan)
+  const int nq = a.SB >> 2;
+  for (int j = warp; j < b.nm; j += nw) {
+    const unsigned* nbw = reinterpret_cast<const unsigned*>(b.nb + j * a.SB);
+    // [0, kSteps): the steps' bits; then the header bits, the events
+    int x[kSteps + 2];
+    x[kSteps] = x[kSteps + 1] = 0;
+    if (lane < HDR_SLOTS && (a.intra || lane > 0)) {
+      x[kSteps] = b.hn[j * HDR_SLOTS + lane];
+      x[kSteps + 1] = x[kSteps] > 0;
+    }
+#pragma unroll
+    for (int t = 0; t < kSteps; t++) {
+      x[t] = 0;
+      if (t < a.nsteps) {
+        const int q = 64 * t + lane;
+        const unsigned w0 = q < nq ? nbw[q] : 0u;
+        const unsigned w1 = q + 32 < nq ? nbw[q + 32] : 0u;
+        x[kSteps + 1] += (__popc(__vcmpne4(w0, 0u))
+                          + __popc(__vcmpne4(w1, 0u))) >> 3;
+        x[t] = static_cast<int>(__dp4a(w0, 0x01010101u, 0u)
+                                + __dp4a(w1, 0x01010101u, 0u));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kSteps + 2; t++)
+      if (t >= kSteps || t < a.nsteps) x[t] = warp_sum(x[t]);
     if (lane == 0) {
-      mb_bits[m] = bits;
-      atomicAdd(&ctx.n_ev, cnt);
+      int bits = x[kSteps];
+#pragma unroll
+      for (int t = 0; t < kSteps; t++) {
+        if (t < a.nsteps) {
+          step_off[j * a.nsteps + t] = x[t];
+          bits += x[t];
+        }
+      }
+      h.mb_bits[j] = bits;
+      h.mb_cnt[j] = x[kSteps + 1];
+      h.hdr_bits[j] = x[kSteps];
     }
   }
   __syncthreads();
-
-  // ---- row layout: prefix, skip runs, MB offsets, tail (one thread)
-  if (threadIdx.x == 0) {
-    int p, n, cnt = 0;
-    ctx.pre_pay[0] = row_hdr_pay[2 * r]; ctx.pre_nb[0] = row_hdr_nb[2 * r];
-    ctx.pre_pay[1] = row_hdr_pay[2 * r + 1];
-    ctx.pre_nb[1] = row_hdr_nb[2 * r + 1];
-    if (intra) {
-      ue_event(row_id[r], &p, &n);
-      ctx.pre_pay[2] = p; ctx.pre_nb[2] = n;        // idr_pic_id
-      ctx.pre_pay[3] = 0; ctx.pre_nb[3] = 2;        // '00' flags
-    } else {
-      ctx.pre_pay[2] = row_id[r] & 0xF; ctx.pre_nb[2] = 4;   // frame_num
-      ctx.pre_pay[3] = 0; ctx.pre_nb[3] = 3;        // '000' flags
+  // the block's scans, 32 MBs a pass: offsets from the block's first MB,
+  // the skip runs of its coded MBs but the first, the sums the ranks trade
+  if (warp == 0) {
+    int bits = 0, last = -1, nev = 0, first = -1;
+    for (int j0 = 0; j0 < b.nm; j0 += 32) {
+      const int j = j0 + lane, m = b.m_lo + j;
+      const bool valid = j < b.nm;
+      const bool coded = valid && !a.intra && b.hn[j * HDR_SLOTS + 1] > 0;
+      int incl_last = coded ? m : -1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl_last, o);
+        if (lane >= o) incl_last = max(incl_last, t);
+      }
+      int prev = __shfl_up_sync(0xffffffffu, incl_last, 1);
+      prev = max(last, lane > 0 ? prev : -1);
+      int sp = 0, sn = 0;
+      if (coded && prev >= 0) ue_event(m - prev - 1, &sp, &sn);
+      const unsigned firsts = __ballot_sync(0xffffffffu, coded && prev < 0);
+      if (firsts) first = b.m_lo + j0 + __ffs(firsts) - 1;
+      const int v = valid ? h.mb_bits[j] + sn : 0;
+      const int incl = warp_incl_sum(v, lane);
+      if (valid) {
+        h.mb_start[j] = bits + incl - v;
+        h.skip_pay[j] = sp;
+        h.skip_nb[j] = sn;
+      }
+      nev += warp_sum(valid ? h.mb_cnt[j] + (sn > 0) : 0);
+      bits += __shfl_sync(0xffffffffu, incl, 31);
+      last = max(last, __shfl_sync(0xffffffffu, incl_last, 31));
     }
-    qp_event(qp_rows[r], &p, &n);
-    ctx.pre_pay[4] = p; ctx.pre_nb[4] = n;
-    ctx.pre_pay[5] = 2; ctx.pre_nb[5] = 3;          // deblock ue(1)
-    int acc = 0;
-    for (int k = 0; k < 6; k++) {
-      ctx.pre_off[k] = acc;
-      acc += ctx.pre_nb[k];
-      cnt += ctx.pre_nb[k] > 0;
+    // this rank's sums into every rank's copy
+    if (lane < P) {
+      st_cluster(map_rank(smem_u32(&h.x_bits[rank]), lane), bits);
+      st_cluster(map_rank(smem_u32(&h.x_nev[rank]), lane), nev);
+      st_cluster(map_rank(smem_u32(&h.x_first[rank]), lane), first);
+      st_cluster(map_rank(smem_u32(&h.x_last[rank]), lane), last);
+    }
+  }
+  cluster_sync();
+  // the row's layout from every rank's sums: where each rank's bits
+  // start, the skip run of each rank's first coded MB, the tail
+  if (tid == 0) {
+    int off = 0, nev = 0;
+    for (int k = 0; k < HDR_SLOTS; k++) {
+      off += h.pre_nb[k];
+      nev += h.pre_nb[k] > 0;
     }
     int prev = -1;
-    for (int m = 0; m < M; m++) {
-      int sp = 0, sn = 0;
-      if (!intra && hdr_nb[(static_cast<size_t>(r) * M + m) * HDR_SLOTS + 1] > 0) {
-        ue_event(m - prev - 1, &sp, &sn);
-        prev = m;
+    h.own_sp = h.own_sn = 0;
+    for (int k = 0; k < P; k++) {
+      h.s_bit[k] = k == 0 ? 0 : off;
+      if (k == rank) h.base = off;
+      int bits = h.x_bits[k];
+      if (h.x_first[k] >= 0) {
+        int sp, sn;
+        ue_event(h.x_first[k] - prev - 1, &sp, &sn);
+        bits += sn;
+        nev += 1;
+        if (k == rank) {
+          h.own_sp = sp;
+          h.own_sn = sn;
+        }
       }
-      skip_pay[m] = sp;
-      skip_nb[m] = sn;
-      cnt += sn > 0;
-      mb_start[m] = acc;
-      acc += mb_bits[m] + sn;
+      off += bits;
+      nev += h.x_nev[k];
+      if (h.x_last[k] >= 0) prev = h.x_last[k];
     }
-    int tn0 = 0, tp0 = 0;
-    if (!intra && M - 1 - prev > 0) ue_event(M - 1 - prev, &tp0, &tn0);
-    ctx.tail_pay[0] = tp0; ctx.tail_nb[0] = tn0; ctx.tail_off[0] = acc;
-    ctx.tail_pay[1] = 1; ctx.tail_nb[1] = 1; ctx.tail_off[1] = acc + tn0;
-    cnt += (tn0 > 0) + 1;
-    const int total = acc + tn0 + 1;
-    total_bits[r] = total;
-    if (ctx.n_ev + cnt > e_cap || total > w_cap * 32) atomicOr(&flags[0], 1);
+    int tp = 0, tn = 0;
+    if (!a.intra && a.M - 1 - prev > 0) ue_event(a.M - 1 - prev, &tp, &tn);
+    h.tail_off = off;
+    h.tail_pay = tp;
+    h.tail_nb = tn;
+    h.s_bit[P] = off + tn + 1;
+    h.nev = nev + (tn > 0) + 1;
   }
   __syncthreads();
-
-  // ---- place the events (offsets inside the seat's words)
-  const long long row_base = static_cast<long long>(r - seat * R) * w_cap * 32;
-  const long long n_words = static_cast<long long>(R) * w_cap;
-  if (threadIdx.x < 6)
-    put_event(words, n_words, row_base + ctx.pre_off[threadIdx.x],
-              static_cast<unsigned>(ctx.pre_pay[threadIdx.x]),
-              ctx.pre_nb[threadIdx.x]);
-  else if (threadIdx.x < 8)
-    put_event(words, n_words, row_base + ctx.tail_off[threadIdx.x - 6],
-              static_cast<unsigned>(ctx.tail_pay[threadIdx.x - 6]),
-              ctx.tail_nb[threadIdx.x - 6]);
-  for (int m = warp; m < M; m += nwarps) {
-    const size_t g = static_cast<size_t>(r) * M + m;
-    long long run = row_base + mb_start[m];
-    for (int base = 0; base < NS; base += 32) {
-      const int s = base + lane;
-      int p = 0, n = 0;
-      if (s == 0 && !intra) {
-        p = skip_pay[m]; n = skip_nb[m];
-      } else if (s < HDR_SLOTS) {
-        p = hdr_pay[g * HDR_SLOTS + s]; n = hdr_nb[g * HDR_SLOTS + s];
-      } else if (s < NS) {
-        p = ev_pay[g * SB + (s - HDR_SLOTS)];
-        n = ev_nb[g * SB + (s - HDR_SLOTS)];
+  // the block's MB and step offsets in the row
+  {
+    const int jf = h.x_first[rank] >= 0 ? h.x_first[rank] - b.m_lo : -1;
+    for (int j = tid; j < b.nm; j += blockDim.x) {
+      if (j == jf) {
+        h.skip_pay[j] = h.own_sp;
+        h.skip_nb[j] = h.own_sn;
       }
-      int incl = n;
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += t;
+      const int start = h.base + h.mb_start[j]
+                        + (jf >= 0 && j > jf ? h.own_sn : 0);
+      h.mb_start[j] = start;
+      int o = start + h.skip_nb[j] + h.hdr_bits[j];
+      for (int t = 0; t < a.nsteps; t++) {
+        const int bits = step_off[j * a.nsteps + t];
+        step_off[j * a.nsteps + t] = o;
+        o += bits;
       }
-      put_event(words, n_words, run + incl - n, static_cast<unsigned>(p), n);
-      run += __shfl_sync(0xffffffffu, incl, 31);
+    }
+  }
+  const int s_bit = h.s_bit[rank], e_bit = h.s_bit[rank + 1];
+  const int total = h.s_bit[P];
+  const int ws = s_bit >> 5;
+  unsigned* gw = a.words + static_cast<long long>(r) * a.w_cap;
+  // the words this block owns: those whose first bit is its
+  const int own_lo = (s_bit + 31) >> 5, own_hi = (e_bit + 31) >> 5;
+  if constexpr (!SPILL) {
+    // zeros under the words past the shared buffer that take atomics
+    store_words(gw, max(own_lo, ws + kWords),
+                min((e_bit + 31) >> 5, a.w_cap), [](int) { return 0u; });
+  }
+  __syncthreads();
+  const long long room = static_cast<long long>(a.R - r % a.R) * a.w_cap;
+  const Sink<SPILL> sink{smem_u32(sw), gw, ws, a.w_cap, room};
+  // the prefix (rank 0) and the tail (the last rank)
+  if (warp == 0 && rank == 0) {
+    const int n = lane < HDR_SLOTS ? h.pre_nb[lane] : 0;
+    const int incl = warp_incl_sum(n, lane);
+    if (n > 0) sink.put(incl - n, static_cast<unsigned>(h.pre_pay[lane]), n);
+  }
+  if (tid == 0 && rank == P - 1) {
+    if (h.tail_nb > 0)
+      sink.put(h.tail_off, static_cast<unsigned>(h.tail_pay), h.tail_nb);
+    sink.put(h.tail_off + h.tail_nb, 1u, 1);
+  }
+  // the MBs' events, chunk by chunk through the ring: the last warp
+  // refills a stage once every other warp has released it (``empty``),
+  // the others place the chunk's (MB, step) tasks, no block barrier
+  // between chunks
+  if (warp == nw - 1) {
+    if (lane == 0) {
+      for (int k = 2; k < nchunks; k++) {
+        const int s = k & 1;
+        mbar_wait(&h.empty[s], ((k - 2) >> 1) & 1);
+        issue_stage(a, ring + s * a.stage_bytes, &h.bar[s], b.g_lo,
+                    k * a.C, min(a.C, b.nm - k * a.C));
+      }
+    }
+  } else {
+    for (int k = 0; k < nchunks; k++) {
+      const int s = k & 1, m0 = k * a.C, nmc = min(a.C, b.nm - m0);
+      const char* stage = ring + s * a.stage_bytes;
+      mbar_wait(&h.bar[s], (k >> 1) & 1);
+      for (int i = warp; i < nmc * (a.nsteps + 1); i += nw - 1) {
+        const int j = m0 + i % nmc;
+        if constexpr (SPILL) {
+          // an MB wholly inside the row's own words has nothing to spill
+          if (h.mb_start[j] + h.mb_bits[j] + h.skip_nb[j] <= a.w_cap * 32)
+            continue;
+        }
+        place_task<SPILL>(a, b, h, sink, step_off, stage, m0, j,
+                          i / nmc - 1, lane);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&h.empty[s]);
+    }
+  }
+  if constexpr (!SPILL) {
+    cluster_sync();
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    // a first word whose first bit is another rank's goes to that rank
+    if (tid == 0 && (s_bit & 31) && e_bit > s_bit && ws < a.w_cap) {
+      int owner = rank - 1;
+      while (h.s_bit[owner] > 32 * ws) owner--;
+      const unsigned v = sw[0];
+      const int i = ws - (h.s_bit[owner] >> 5);
+      if (v && i < kWords)
+        asm volatile("red.shared::cluster.add.u32 [%0], %1;"
+                     :: "r"(map_rank(smem_u32(sw + i), owner)), "r"(v)
+                     : "memory");
+      else if (v)
+        atomicAdd(&gw[ws], v);
+    }
+    cluster_sync();
+    // the owned words in the shared buffer (those past it took atomics)
+    store_words(gw, own_lo, min(own_hi, min(ws + kWords, a.w_cap)),
+                [=](int i) { return sw[i - ws]; });
+    // the words past the row's bits: zeros, a share a rank
+    const int z0 = (total + 31) >> 5, zn = (a.w_cap - z0 + P - 1) / P;
+    if (zn > 0)
+      store_words(gw, z0 + rank * zn, min(a.w_cap, z0 + (rank + 1) * zn),
+                  [](int) { return 0u; });
+    if (tid == 0 && rank == 0) {
+      a.total_bits[r] = total;
+      a.byte_lens[r] = h.nev;
     }
   }
 }
+
+// (3) the byte buffer of each seat (blockIdx.y), 16 bytes a thread
+__global__ void __launch_bounds__(256)
+stream_bytes_kernel(const unsigned* __restrict__ words,
+                    const int* __restrict__ total_bits,
+                    int* __restrict__ byte_lens, int* __restrict__ flags,
+                    int R, int e_cap, int w_cap, int out_cap,
+                    uint8_t* __restrict__ data) {
+  extern __shared__ long long starts[];   // R + 1 (last: the total)
+  // launched behind grid (2): wait for the words to be complete
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int seat = blockIdx.y;
+  words += static_cast<long long>(seat) * R * w_cap;
+  total_bits += static_cast<long long>(seat) * R;
+  byte_lens += static_cast<long long>(seat) * R;
+  data += static_cast<long long>(seat) * out_cap;
+  for (int k = threadIdx.x; k < R; k += blockDim.x) starts[k] = total_bits[k];
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    // the rows' byte starts; the first block also the seat's byte
+    // lengths (in place of the event counts grid (1) left) and flags
+    const int lane = threadIdx.x;
+    long long carry = 0;
+    int bad = 0;
+    for (int k0 = 0; k0 < R; k0 += 32) {
+      const int k = k0 + lane;
+      const int tb = k < R ? static_cast<int>(starts[k]) : 0;
+      const int v = (tb + 7) >> 3;
+      const int incl = warp_incl_sum(v, lane);
+      if (k < R) {
+        starts[k] = carry + incl - v;
+        if (blockIdx.x == 0) {
+          bad |= byte_lens[k] > e_cap || tb > w_cap * 32;
+          byte_lens[k] = v;
+        }
+      }
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+      starts[R] = carry;
+      if (blockIdx.x == 0) {
+        flags[2 * seat] = bad;
+        flags[2 * seat + 1] = carry > out_cap;
+      }
+    }
+  }
+  __syncthreads();
+  const long long j0 = (static_cast<long long>(blockIdx.x) * blockDim.x
+                        + threadIdx.x) * 16;
+  if (j0 >= out_cap) return;
+  const long long total = starts[R];
+  const long long B = 4LL * w_cap;
+  auto row_of = [&](long long j) {         // last k with starts[k] <= j
+    int lo = 0, hi = R;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (starts[mid] <= j) lo = mid + 1; else hi = mid;
+    }
+    return clampi(lo - 1, 0, R - 1);
+  };
+  unsigned out[4] = {0u, 0u, 0u, 0u};      // little-endian byte order
+  if (j0 < total) {
+    const int k = row_of(j0);
+    const long long local0 = j0 - starts[k];
+    const unsigned* w = words + static_cast<long long>(k) * w_cap;
+    if (j0 + 16 <= starts[k + 1] && local0 >= 0 && local0 + 16 <= B) {
+      // one row, inside its words: five big-endian words, shifted
+      const long long q = local0 >> 2;
+      const int sh = static_cast<int>(local0 & 3) * 8;
+      unsigned v[5];
+#pragma unroll
+      for (int i = 0; i < 4; i++) v[i] = w[q + i];
+      v[4] = sh && q + 4 < w_cap ? w[q + 4] : 0u;
+#pragma unroll
+      for (int i = 0; i < 4; i++)
+        out[i] = __byte_perm(__funnelshift_l(v[i + 1], v[i], sh), 0, 0x0123);
+    } else {
+      // across a row's end or past its words: every byte's word first
+      // (rows walked forward from k), then the 16 loads at once
+      long long at[16];
+      int sh[16];
+      int kb = k;
+#pragma unroll
+      for (int b = 0; b < 16; b++) {
+        const long long j = j0 + b;
+        while (kb + 1 < R && starts[kb + 1] <= j) kb++;
+        long long local = j - starts[kb];
+        local = local < 0 ? 0 : (local > B - 1 ? B - 1 : local);
+        at[b] = j < total && j < out_cap
+            ? static_cast<long long>(kb) * w_cap + (local >> 2) : -1;
+        sh[b] = 24 - 8 * static_cast<int>(local & 3);
+      }
+      unsigned wd[16];
+#pragma unroll
+      for (int b = 0; b < 16; b++) wd[b] = at[b] >= 0 ? words[at[b]] : 0u;
+#pragma unroll
+      for (int b = 0; b < 16; b++)
+        out[b >> 2] |= ((wd[b] >> sh[b]) & 0xFFu) << (8 * (b & 3));
+    }
+  }
+  uint8_t* dst = data + j0;
+  if (j0 + 16 <= out_cap && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(out[0], out[1], out[2],
+                                                out[3]);
+  } else {
+    for (int b = 0; b < 16 && j0 + b < out_cap; b++)
+      dst[b] = static_cast<uint8_t>(out[b >> 2] >> (8 * (b & 3)));
+  }
+}
+
+int round16(long long x) { return static_cast<int>((x + 15) & ~15LL); }
+
+}  // namespace
 
 // S seats of R rows each: words (S * R, w_cap), total_bits and byte_lens
 // (S * R,), data (S, out_cap), flags (S, 2); every per-row input is
@@ -195,19 +853,112 @@ extern "C" int pack_stream_seats(const int* hdr_pay, const int* hdr_nb,
                                  int M, int e_cap, int w_cap, int out_cap,
                                  int* words, int* total_bits, uint8_t* data,
                                  int* byte_lens, int* flags, void* stream) {
-  if (S <= 0 || S > 65535 || R <= 0)
+  if (S <= 0 || S > 65535 || R <= 0 || M <= 0 || w_cap <= 0 || out_cap < 0
+      || SB <= 0 || SB % 4)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(ev_nb) & 3)   // nb is read as u32
+    return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(words, 0,
-                  sizeof(int) * static_cast<size_t>(S) * R * w_cap, s);
-  cudaMemsetAsync(flags, 0, 2 * sizeof(int) * static_cast<size_t>(S), s);
-  pack_rows_kernel<<<S * R, 256, 4 * M * sizeof(int), s>>>(
-      hdr_pay, hdr_nb, ev_pay, ev_nb, SB, row_hdr_pay, row_hdr_nb, row_id, qp,
-      intra, R, M, e_cap, w_cap, reinterpret_cast<unsigned*>(words),
-      total_bits, flags);
-  launch_concat_bytes<false>(reinterpret_cast<const unsigned*>(words),
-                             total_bits, S, R, w_cap, out_cap, data,
-                             byte_lens, flags, s);
+  // per device, read once: shared memory a block may opt into, SMs; the
+  // row kernels are allowed all of it once (the values are the same in
+  // every thread that races to set them)
+  static int known[64][2];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!known[dev][0]) {
+    int smem = 0, count = 0;
+    cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(pack_rows_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaFuncSetAttribute(pack_rows_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    known[dev][1] = count;
+    known[dev][0] = smem;
+  }
+  const int smem_max = known[dev][0], sms = known[dev][1];
+  // blocks a row: enough that each block's resident nb fits kNbMax (at
+  // most kMaxRank), more while every block still fits one wave at two
+  // blocks an SM (3 for a 1080p frame, 8 for a band of a few rows)
+  const long long rows = static_cast<long long>(S) * R;
+  const long long p_fit = (1LL * M * SB + kNbMax - 1) / kNbMax;
+  long long p = 2LL * sms / rows;
+  p = p > p_fit ? p : p_fit;
+  const int P = p < 1 ? 1 : (p > kMaxRank ? kMaxRank : static_cast<int>(p));
+  const int Mb = (M + P - 1) / P;
+  if (Mb > kMaxMBs || rows * P > 0x7fffffffLL
+      || (SB / 4 + 63) / 64 > kSteps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PackArgs a{hdr_pay, hdr_nb, ev_pay, ev_nb, row_hdr_pay, row_hdr_nb,
+             row_id, qp, SB, intra, R, M, e_cap, w_cap, P, Mb, 0,
+             ((SB / 4) + 63) / 64, 1, 0, 0, 0, 0, 0, 0,
+             reinterpret_cast<unsigned*>(words), total_bits, byte_lens};
+  // the layout, nb resident if a block can hold it (else nb stays in
+  // device memory), and the MBs a ring stage, at most 16: as many as
+  // keep two blocks an SM, else as many as fit one
+  int bytes = 0;
+  for (a.nb_res = 1; a.nb_res >= 0; a.nb_res--) {
+    a.off_hp = round16(sizeof(Head) + 4LL * Mb * a.nsteps);
+    a.off_hn = a.off_hp + round16(4LL * Mb * HDR_SLOTS + 32);
+    a.off_nb = a.off_hn + round16(4LL * Mb * HDR_SLOTS + 32);
+    a.off_ring = a.off_nb + (a.nb_res ? round16(1LL * Mb * SB + 32) : 0);
+    const int budgets[2] = {smem_max / 2 - 1024, smem_max};
+    for (int bi = 0; bi < 2 && a.C == 0; bi++) {
+      for (int C = 16; C >= 1; C--) {
+        const int stage = round16(4LL * C * SB + 32);
+        const int total = a.off_ring + 2 * stage + 4 * kWords;
+        if (total <= budgets[bi]) {
+          a.C = C;
+          a.stage_bytes = stage;
+          bytes = total;
+          break;
+        }
+      }
+    }
+    if (a.C) break;
+  }
+  if (a.C == 0) return static_cast<int>(cudaErrorInvalidValue);
+  a.off_words = a.off_ring + 2 * a.stage_bytes;
+  // grids (2) and (3) launch behind the one before them (programmatic
+  // dependent launch) and wait for it inside
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * P));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, pack_rows_kernel<false>, a);
+  cfg.numAttrs = 2;
+  cudaLaunchKernelEx(&cfg, pack_rows_kernel<true>, a);
+  const int threads = 256;
+  const long long chunks = (static_cast<long long>(out_cap) + 15) / 16;
+  const int starts_bytes = (R + 1) * static_cast<int>(sizeof(long long));
+  if (starts_bytes > 48 * 1024)
+    cudaFuncSetAttribute(stream_bytes_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         starts_bytes);
+  cudaLaunchConfig_t bcfg = {};
+  bcfg.gridDim = dim3(static_cast<unsigned>(
+      chunks > 0 ? (chunks + threads - 1) / threads : 1), S);
+  bcfg.blockDim = dim3(threads);
+  bcfg.dynamicSmemBytes = starts_bytes;
+  bcfg.stream = s;
+  bcfg.attrs = attr + 1;
+  bcfg.numAttrs = 1;
+  cudaLaunchKernelEx(&bcfg, stream_bytes_kernel,
+                     reinterpret_cast<const unsigned*>(words),
+                     static_cast<const int*>(total_bits), byte_lens, flags,
+                     R, e_cap, w_cap, out_cap, data);
   return static_cast<int>(cudaGetLastError());
 }
 

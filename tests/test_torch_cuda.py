@@ -19,8 +19,15 @@ split-frame K4's seat entry at 4:4:4's slot counts, K20 at widths that
 are not multiples of 16 with halos past both frame edges, K19 at 4:2:0
 and 4:4:4 with windows across the shard seams and odd negative vertical
 candidates (equal to K5 on the whole frame as well), the sharded frame
-entries and the sharded session at 4 shards) and must match it exactly,
-overflow flags included. Tolerance: 0.
+entries and the sharded session at 4 shards; for K3 and K4 the edge
+frame (45 MBs a row, an all-skip P row, a row coded in its last MB only,
+a row ending on a word boundary) and each of its rows as a 1-row band,
+bands of 1, 2, 4 and 5 rows at 45 and 63 MBs a row (as views, their nb
+rows off 16-byte boundaries), 28-bit escapes at QP 0 on noise past K4's
+shared words, e_cap overflow alone, spills into the next row and off a
+seat's end at 1, 3 and 8 seats, out_cap at the total and one byte less,
+4:4:4 through both K4 entries with K16, and a 1080p frame) and must
+match it exactly, overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -1125,3 +1132,351 @@ def test_sharded_session_on_the_card(dev, full):
     assert sh._cap_gen == 1 and all(c.is_idr for c in got[0])
     assert _cuda.LAUNCHES["pack_stream_seats"] - before[
         "pack_stream_seats"] == len(frames)
+
+
+# ----------------------------------------- K3 and K4 on their edge shapes
+#: the K3 / K4 edge frame, shared with the CPU test that pins it to the
+#: reference (tests/test_torch_h264_frames.py): 3 MB rows of 45 MBs (720
+#: px, not a multiple of K4's 16 warps a block). As a P frame at QP 28
+#: against ``ref``: row 0 is unchanged (every MB skipped: the tail skip
+#: run only), row 1 changes in its last MB only, and row 2 changes
+#: throughout, its bits ending on a word boundary (EDGE_SEED is a seed
+#: for which they do)
+EDGE_R, EDGE_M, EDGE_QP, EDGE_SEED = 3, 45, 28, 81
+
+
+def _edge_planes(seed=EDGE_SEED):
+    """-> (cur, ref): Y, U, V uint8 planes of the edge frame (numpy)."""
+    rng = np.random.default_rng(seed)
+    H, W = 16 * EDGE_R, 16 * EDGE_M
+    yy, xx = np.mgrid[0:H, 0:W]
+    ref = [(40 + 2 * yy + xx // 3) % 256, 100 + xx[::2, ::2] // 4,
+           160 - yy[::2, ::2]]
+    cur = [p.copy() for p in ref]
+    cur[0][16:32, W - 16:] = rng.integers(0, 256, (16, 16))
+    cur[0][32:48] = np.where(rng.random((16, W)) < 0.3, 20, cur[0][32:48])
+    cur[1][16:24] = np.clip(cur[1][16:24]
+                            + rng.integers(-20, 21, (8, W // 2)), 0, 255)
+    return ([a.astype(np.uint8) for a in cur],
+            [a.astype(np.uint8) for a in ref])
+
+
+def _k2_plain(dev, planes, ref, qp, intra, tables=HP):
+    """K2's plain outputs (lv, cbp, hdr_pay, hdr_nb) on the card: I as one
+    stripe, P at zero motion against ``ref`` (``tables``: HP for 4:2:0,
+    H4 for 4:4:4)."""
+    t = [torch.as_tensor(p, device=dev) for p in planes]
+    rf = [torch.as_tensor(p, device=dev) for p in ref]
+    R = t[0].shape[0] // 16
+    qp = torch.full((R,), qp, dtype=torch.int32, device=dev)
+    if intra:
+        fn = tables.mb_encode_i_plain if tables is HP \
+            else tables.mb_encode_i444_plain
+        return fn(*t, qp, torch.ones((1,), dtype=torch.int32, device=dev),
+                  R, *rf)
+    fn = tables.mb_encode_p_plain if tables is HP \
+        else tables.mb_encode_p444_plain
+    return fn(*t, qp, torch.ones((R,), dtype=torch.int32, device=dev), *rf,
+              None, *[r.clone() for r in rf])
+
+
+def _row_events(dev, M, R, intra, qp=EDGE_QP):
+    """Slice-header rows, row ids and QPs of R rows of M MBs."""
+    fn = hcodec.slice_header_events if intra \
+        else hcodec.p_slice_header_events
+    pay, nb = fn(M, R)
+    return (torch.as_tensor(pay.astype(np.int32), device=dev),
+            torch.as_tensor(nb.astype(np.int32), device=dev),
+            torch.arange(R, dtype=torch.int32, device=dev) % 16,
+            torch.full((R,), qp, dtype=torch.int32, device=dev))
+
+
+def _k3_k4(dev, out, intra, rows=None, e_cap=10 ** 6, w_cap=4096,
+           out_cap=1 << 16, qp=EDGE_QP):
+    """K3 and K4 against their plain versions on K2's ``out`` (the rows
+    ``rows`` of it and of the frame's slice-header rows, as views, as the
+    band step hands them over); -> K4's output."""
+    R, M = out[0].shape[:2]
+    rows = slice(None) if rows is None else rows
+    lv, cbp, hp, hn = (t[rows] for t in out)
+    ev = HP.cavlc_events(lv, cbp, intra)
+    _same(ev, HP.cavlc_events_plain(lv, cbp, intra))
+    args = (hp, hn, *ev, *(t[rows] for t in _row_events(dev, M, R, intra,
+                                                         qp)),
+            intra, e_cap, w_cap, out_cap)
+    k = HP.pack_stream(*args)
+    _same(k, HP.pack_stream_plain(*args))
+    return k
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_k3_k4_edge_frame(dev, intra):
+    """The edge frame: an all-skip P row, a P row whose last MB is the
+    only one coded, a row ending on a word boundary, 45 MBs a row; then
+    each row alone as a 1-row band, equal to its row of the frame."""
+    cur, ref = _edge_planes()
+    out = _k2_plain(dev, cur, ref, EDGE_QP, intra)
+    k = _k3_k4(dev, out, intra)
+    if not intra:
+        coded = (out[3][..., 1] > 0).cpu().numpy()
+        assert not coded[0].any()
+        assert coded[1].tolist() == [False] * (EDGE_M - 1) + [True]
+        assert int(k.total_bits[2]) % 32 == 0
+    for r in range(EDGE_R):
+        k1 = _k3_k4(dev, out, intra, slice(r, r + 1))
+        _same([k1.words[0], k1.total_bits[0]], [k.words[r], k.total_bits[r]])
+
+
+def _band_frame(dev, W, rows, intra, seed):
+    """K2's plain outputs of a desktop-like frame of ``rows`` MB rows and
+    width ``W`` with noise patches (I; P against it shifted)."""
+    rng = np.random.default_rng(seed)
+    H = 16 * rows
+    yy, xx = np.mgrid[0:H, 0:W]
+    y = (30 + yy + xx // 2) % 256
+    y[:, W // 3:W // 2] = rng.integers(0, 256, (H, W // 2 - W // 3))
+    planes = [y, 90 + xx[::2, ::2] // 8, 170 - yy[::2, ::2] // 2]
+    ref = [np.roll(p, 3, 1) for p in planes]
+    return _k2_plain(dev, [p.astype(np.uint8) for p in planes],
+                     [p.astype(np.uint8) for p in ref], 24, intra)
+
+
+@pytest.mark.parametrize("intra", [True, False])
+@pytest.mark.parametrize("W", [720, 1008])
+@pytest.mark.parametrize("rows", [1, 2, 4, 5])
+def test_k3_k4_bands(dev, rows, W, intra):
+    """Bands of 1, 2, 4 and 5 MB rows (rows 1.. of a 6-row frame, as
+    views) at 45 and 63 MBs a row; K4 also on views of the whole frame's
+    K3 output, whose nb rows start off 16-byte boundaries."""
+    out = _band_frame(dev, W, 6, intra, rows)
+    band = slice(1, 1 + rows)
+    _k3_k4(dev, out, intra, band, qp=24)
+    lv, cbp, hp, hn = out
+    ev = HP.cavlc_events(lv, cbp, intra)
+    M = W // 16
+    args = (hp[band], hn[band], ev[0][band], ev[1][band],
+            *(t[band] for t in _row_events(dev, M, 6, intra, 24)), intra,
+            10 ** 6, 4096, 1 << 16)
+    _same(HP.pack_stream(*args), HP.pack_stream_plain(*args))
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_k3_k4_escapes_at_qp0_on_noise(dev, intra):
+    """Noise at QP 0, 120 MBs a row: 28-bit level escapes, rows of over
+    8192 words, at the stock 1080p w_cap (which some rows overflow) and
+    at one they fit. (The blocks' shares of a row past K4's shared words
+    are test_k4_block_shares_past_its_shared_words'.)"""
+    rng = np.random.default_rng(7)
+    H, W = 32, 1920
+    planes = [rng.integers(0, 256, s, dtype=np.uint8)
+              for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    ref = [rng.integers(0, 256, p.shape, dtype=np.uint8) for p in planes]
+    out = _k2_plain(dev, planes, ref, 0, intra)
+    ev = HP.cavlc_events(out[0], out[1], intra)
+    assert int(ev[1].max()) == 28
+    for w_cap in (23040, 1 << 16):
+        k = _k3_k4(dev, out, intra, w_cap=w_cap, out_cap=1 << 20, qp=0)
+        assert int(k.total_bits.max()) > 8192 * 32
+    assert int(k.flags[0]) == 0
+
+
+#: pack_stream.cu: the words a block keeps in shared memory (kWords),
+#: the blocks a row at most (kMaxRank), the MBs a block at most (kMaxMBs)
+K4_WORDS, K4_MAX_RANK, K4_MAX_MBS = 2048, 8, 132
+
+
+def _ue_bits(v):
+    return 2 * (int(v) + 1).bit_length() - 1
+
+
+def _rank_starts(hn, en, total, intra, P):
+    """The bit where each of P blocks' MBs start in a row (and the row's
+    end), from the row's header and slot bit counts (numpy, (M, 6) and
+    (M, SB)) and its total bits: the row prefix, then each MB with the
+    skip run before it (P), then the tail skip run and the stop bit."""
+    M = hn.shape[0]
+    bits = hn.sum(1).astype(np.int64) + en.sum(1).astype(np.int64)
+    tail = 0
+    if not intra:
+        prev = -1
+        for m in np.flatnonzero(hn[:, 1] > 0):
+            bits[m] += _ue_bits(m - prev - 1)
+            prev = m
+        tail = _ue_bits(M - 1 - prev) if M - 1 - prev > 0 else 0
+    prefix = total - int(bits.sum()) - tail - 1
+    Mb = -(-M // P)
+    cum = np.concatenate([[0], np.cumsum(bits)])
+    return [0] + [prefix + int(cum[min(k * Mb, M)]) for k in range(1, P)] \
+        + [total]
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_k4_block_shares_past_its_shared_words(dev, intra):
+    """One 3840 px row of noise at QP 0 (a one-row band: 8 blocks of 30
+    MBs, whatever the card's SM count): every block but the last packs
+    over 2048 words, so its words past its shared buffer take global
+    atomics, and a block whose first bit lies inside a word hands that
+    word to a block whose shared buffer it lies past."""
+    rng = np.random.default_rng(5)
+    H, W = 16, 3840
+    planes = [rng.integers(0, 256, s, dtype=np.uint8)
+              for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    ref = [rng.integers(0, 256, p.shape, dtype=np.uint8) for p in planes]
+    out = _k2_plain(dev, planes, ref, 0, intra)
+    k = _k3_k4(dev, out, intra, w_cap=1 << 16, out_cap=1 << 19, qp=0)
+    ev = HP.cavlc_events(out[0], out[1], intra)
+    starts = _rank_starts(out[3][0].cpu().numpy(), ev[1][0].cpu().numpy(),
+                          int(k.total_bits[0]), intra, K4_MAX_RANK)
+    shares = np.diff(starts)
+    assert shares[:-1].min() > 32 * (K4_WORDS + 1)
+    assert any(b % 32 for b in starts[1:-1])
+    assert int(k.total_bits[0]) < 32 * (1 << 16)
+
+
+def _k4_both_entries(args, intra, n_seats, w_cap=1 << 16, out_cap=1 << 18):
+    """K4's frame and seat entries on ``args``, each equal to its plain
+    version (tolerance 0)."""
+    a = (*args, intra, 10 ** 6, w_cap, out_cap)
+    _same(HP.pack_stream(*a), HP.pack_stream_plain(*a))
+    _same(HP.pack_stream_seats(*a, n_seats=n_seats),
+          HP.pack_stream_seats_plain(*a, n_seats=n_seats))
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_k3_k4_at_3840(dev, intra):
+    """4:2:0 at 3840 px (240 MBs a row), 4 rows: K3, then K4 through both
+    entries (the frame, and its rows as two seats)."""
+    out = _band_frame(dev, 3840, 4, intra, 9)
+    lv, cbp, hp, hn = out
+    ev = HP.cavlc_events(lv, cbp, intra)
+    _same(ev, HP.cavlc_events_plain(lv, cbp, intra))
+    _k4_both_entries((hp, hn, *ev, *_row_events(dev, 240, 4, intra, 24)),
+                     intra, 2)
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_k16_k4_444_at_3840(dev, intra):
+    """4:4:4 at 3840 px (240 MBs a row, 1740 / 1728 slots an MB: the row's
+    nb is over 8 blocks' preferred share of shared memory), 4 rows: K16,
+    then K4 through both entries."""
+    rng = np.random.default_rng(12)
+    H, W = 64, 3840
+    planes = [rng.integers(0, 256, (H, W), dtype=np.uint8)
+              for _ in range(3)]
+    for p in planes:
+        p[:, :2000] = 128 + (np.arange(2000) // 64) % 8
+    ref = [np.roll(p, 2, 1) for p in planes]
+    lv, cbp, hp, hn = _k2_plain(dev, planes, ref, 22, intra, H4)
+    ev = H4.cavlc_events444(lv, cbp, intra)
+    _same(ev, H4.cavlc_events444_plain(lv, cbp, intra))
+    _k4_both_entries((hp, hn, *ev, *_row_events(dev, 240, 4, intra, 22)),
+                     intra, 2)
+
+
+@pytest.mark.parametrize("intra", [True, False])
+@pytest.mark.parametrize("tables", [HP, H4], ids=["420", "444"])
+@pytest.mark.parametrize("mb_w", [240, 480, 1056])
+def test_pack_stream_wide_rows(dev, mb_w, tables, intra):
+    """Rows of 240, 480 and 1056 MBs (3840, 7680 and 16896 px, the last
+    past the widest row H.264 allows) at 4:2:0's and 4:4:4's slot counts,
+    random slot events, through both K4 entries: each block's nb
+    resident two blocks an SM, one block an SM, and (4:4:4 at 1056 MBs)
+    read from device memory. Seat 0's last row spills off the seat."""
+    args = _seat_pack_inputs(dev, np.random.default_rng(mb_w), 2, 2, mb_w,
+                             intra, tables)
+    _k4_both_entries(args, intra, 2)
+
+
+def test_pack_stream_refuses_rows_past_its_widest(dev):
+    """A row of 8 * 132 + 1 MBs is refused: the wrapper raises."""
+    args = _seat_pack_inputs(dev, np.random.default_rng(1), 1, 1,
+                             K4_MAX_RANK * K4_MAX_MBS + 1, True)
+    with pytest.raises(RuntimeError, match="pack_stream"):
+        HP.pack_stream(*args, True, 10 ** 6, 1 << 16, 1 << 16)
+
+
+def test_pack_stream_e_cap_overflow_alone(dev):
+    """More events than e_cap in rows that fit their words: flag 0 set,
+    everything else as the plain version's."""
+    cur, ref = _edge_planes()
+    out = _k2_plain(dev, cur, ref, EDGE_QP, True)
+    k = _k3_k4(dev, out, True, e_cap=200)
+    assert k.flags.tolist() == [1, 0]
+    assert int(k.total_bits.max()) <= 4096 * 32
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_pack_stream_out_cap_at_the_total(dev, intra):
+    """out_cap exactly the stream's bytes (flag 1 clear) and one byte
+    less (set); neither a multiple of 16."""
+    cur, ref = _edge_planes()
+    out = _k2_plain(dev, cur, ref, EDGE_QP, intra)
+    total = int(_k3_k4(dev, out, intra).byte_lens.sum())
+    for cap, flag in ((total, 0), (total - 1, 1)):
+        k = _k3_k4(dev, out, intra, out_cap=cap)
+        assert int(k.flags[1]) == flag
+
+
+def _spill_inputs(dev, rng, n_seats, rows, mb_w, intra):
+    """K4 seat inputs whose first and last rows of every seat carry
+    ~20 bits a slot: with a small w_cap the first row spills into the
+    second and the last one off the seat's end."""
+    args = list(_seat_pack_inputs(dev, rng, n_seats, rows, mb_w, intra))
+    nb = args[3].clone()
+    big = nb.view(n_seats, rows, mb_w, -1)
+    big[:, 0] = 20
+    big[:, -1] = 20
+    pay = torch.as_tensor(rng.integers(0, 1 << 20, nb.shape).astype(
+        np.int32), device=dev) & ((1 << nb.to(torch.int32)) - 1)
+    args[2], args[3] = pay, nb
+    return args
+
+
+@pytest.mark.parametrize("n_seats", [1, 3, 8])
+@pytest.mark.parametrize("intra", [True, False])
+def test_pack_stream_spills_into_the_next_row_and_off_the_seat(
+        dev, n_seats, intra):
+    rows, mb_w = 3, 5
+    args = _spill_inputs(dev, np.random.default_rng(60 + n_seats), n_seats,
+                         rows, mb_w, intra)
+    w_cap = 2048
+    a = (*args, intra, 10 ** 6, w_cap, 1 << 16)
+    k = HP.pack_stream_seats(*a, n_seats=n_seats)
+    _same(k, HP.pack_stream_seats_plain(*a, n_seats=n_seats))
+    tb = k.total_bits.view(n_seats, rows)
+    assert bool((tb[:, 0] > w_cap * 32).all())
+    assert bool((tb[:, -1] > w_cap * 32).all())
+    assert bool((tb[:, 1] <= w_cap * 32).all())
+    assert k.flags[:, 0].tolist() == [1] * n_seats
+    if n_seats == 1:
+        one = (*(x[:rows] for x in args), intra, 10 ** 6, w_cap, 1 << 16)
+        _same(HP.pack_stream(*one), HP.pack_stream_plain(*one))
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_k16_and_k4_at_444_slot_counts_odd_width(dev, intra):
+    """4:4:4 at 45 MBs a row: K16 equal to its plain version, and K4
+    through both entries (the frame, and its rows as two seats) at the
+    1740 / 1728 slot counts."""
+    rng = np.random.default_rng(11)
+    H, W = 32, 720
+    planes = [rng.integers(0, 256, (H, W), dtype=np.uint8)
+              for _ in range(3)]
+    planes[0][:, :300] = 128
+    ref = [np.roll(p, 2, 1) for p in planes]
+    lv, cbp, hp, hn = _k2_plain(dev, planes, ref, 22, intra, H4)
+    ev = H4.cavlc_events444(lv, cbp, intra)
+    _same(ev, H4.cavlc_events444_plain(lv, cbp, intra))
+    args = (hp, hn, *ev, *_row_events(dev, 45, 2, intra, 22), intra,
+            10 ** 6, 4096, 1 << 16)
+    _same(HP.pack_stream(*args), HP.pack_stream_plain(*args))
+    _same(HP.pack_stream_seats(*args, n_seats=2),
+          HP.pack_stream_seats_plain(*args, n_seats=2))
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_k3_k4_at_1080p(dev, intra):
+    """A 1080p frame (68 rows of 120 MBs) through K3 and K4 at the stock
+    caps, kernel == plain."""
+    out = _band_frame(dev, 1920, 68, intra, 3)
+    _k3_k4(dev, out, intra, w_cap=23040, out_cap=345600, qp=24)

@@ -25,6 +25,7 @@ from selkies_tpu.ops import h264_planes as JP
 from selkies_tpu_torch.engine.h264_encoder import H264EncoderSession
 from selkies_tpu_torch.engine.types import CaptureSettings
 from selkies_tpu_torch.ops import h264_planes as TP
+from tests.test_torch_cuda import EDGE_M, EDGE_QP, EDGE_R, _edge_planes
 
 torch.set_num_threads(1)
 
@@ -120,6 +121,50 @@ def test_all_skip_p_frame(case):
     for g, r in zip(trec, rec):
         assert np.array_equal(g.numpy(), r)
     assert int(got.total_bits.max()) < 64
+
+
+_EDGE_E_CAP = 9 + EDGE_M * 879 + 2
+_j_edge_p = jax.jit(lambda y, u, v, ry, ru, rv, qp, fn: JP.h264_encode_p_yuv(
+    y, u, v, ry, ru, rv, qp, *jcodec.p_slice_header_events(EDGE_M, EDGE_R),
+    fn, _EDGE_E_CAP, W_CAP))
+
+
+def test_k3_k4_edge_rows_equal_reference():
+    """The K3 / K4 card tests' edge frame (tests/test_torch_cuda.py: 45
+    MBs a row, an all-skip P row, a row coded in its last MB only, a row
+    whose bits end on a word boundary) through the plain K2-P,
+    ``cavlc_events_plain`` and ``pack_stream_plain`` equals the
+    reference's P frame; each row packed alone, as a 1-row band, equals
+    its row of the frame."""
+    cur, ref = _edge_planes()
+    qp = np.full(EDGE_R, EDGE_QP, np.int32)
+    fn = np.arange(EDGE_R, dtype=np.int32)
+    want, _ = _j_edge_p(*(a.astype(np.int32) for a in cur + ref), qp, fn)
+    t = [torch.from_numpy(a) for a in cur + ref]
+    lv, cbp, hp, hn = TP.mb_encode_p_plain(
+        *t[:3], torch.from_numpy(qp), torch.ones(EDGE_R, dtype=torch.int32),
+        *t[3:], None, *(a.clone() for a in t[3:]))
+    ev = TP.cavlc_events_plain(lv, cbp, False)
+    pay, nb = jcodec.p_slice_header_events(EDGE_M, EDGE_R)
+    rows = (torch.from_numpy(pay.astype(np.int32)),
+            torch.from_numpy(nb.astype(np.int32)), torch.from_numpy(fn),
+            torch.from_numpy(qp))
+    got = TP.pack_stream_plain(hp, hn, *ev, *rows, False, _EDGE_E_CAP,
+                               W_CAP, 1 << 16)
+    assert np.array_equal(got.words.numpy().view(np.uint32),
+                          np.asarray(want.words))
+    assert np.array_equal(got.total_bits.numpy(),
+                          np.asarray(want.total_bits))
+    assert not bool(want.overflow) and got.flags.tolist() == [0, 0]
+    bits = got.total_bits.tolist()
+    assert bits[0] < 64 and bits[2] % 32 == 0
+    assert (hn[1, :, 1] > 0).tolist() == [False] * (EDGE_M - 1) + [True]
+    for r in range(EDGE_R):
+        one = TP.pack_stream_plain(
+            hp[r:r + 1], hn[r:r + 1], ev[0][r:r + 1], ev[1][r:r + 1],
+            *(x[r:r + 1] for x in rows), False, _EDGE_E_CAP, W_CAP, 1 << 16)
+        assert torch.equal(one.words[0], got.words[r])
+        assert int(one.total_bits[0]) == bits[r]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the raise "
