@@ -87,10 +87,16 @@ is an integer) and timed with CUDA events beside the plain version, its
 bound and, where one exists, one PyTorch call computing the same
 function. K3 and K4 are also timed on the P inputs, on bands of 4 and 16
 rows of them, at 4:4:4, at 1, 2, 4 and 8 seats and on 4 split-frame
-shards (the "K3 / K4 timing points" line), and the main path's three
-step shapes (stock I, full-frame P band, one-stripe P band) are timed
-on the device between CUDA events, the host's enqueue hidden behind a
-spin kernel (the "step device times" line). Exits non-zero on any mismatch, launch error or kernel a path
+shards; K16 on the 4:4:4 I and P inputs, on bands of 4 and 16 rows of
+the P events (views) and on the 4 shards' I events; K5 and its 4:4:4
+entry at 1080p and on bands of 4 and 16 rows (views at a stripe
+boundary, each band equal to the plain version); K19 and its 4:4:4
+entry at 4 shards (the "K3 / K4 / K16 / K5 / K19 timing points" line).
+The main path's three step shapes (stock I, full-frame P band,
+one-stripe P band) are timed on the device between CUDA events, the
+host's enqueue hidden behind a spin kernel, for the default session
+and for the fullcolor default session (the two "step device times"
+lines). Exits non-zero on any mismatch, launch error or kernel a path
 did not launch; the last line is the device record. Needs no network and
 one card.
 """
@@ -598,13 +604,35 @@ def bound_ms(by: int, ops: int) -> float:
     return max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
 
 
-#: K3 / K4 timing points beyond the kernels line: shape -> record
+#: K3 / K4 / K16 / K5 / K19 timing points beyond the kernels line:
+#: shape -> record
 POINTS: dict = {}
 
 
 def point(name: str, ms: float, by: int, ops: int, pms=None) -> None:
     POINTS[name] = {"ms": ms, "bound_ms": bound_ms(by, ops),
                     "plain_ms": pms}
+
+
+def motion_points(name: str, kern, plain, cur, ref, qp, cands, win: int,
+                  rps: int, cdiv: int, flush) -> None:
+    """K5 entry ``kern`` on bands of ``rps`` and ``4 * rps`` MB rows of
+    the frame (views at a stripe boundary, as the band step hands them
+    over), each equal to ``plain`` (tolerance 0), timed as timing
+    points."""
+    R, M = cur.shape[0] // 16, cur.shape[1] // 16
+    r0 = (R // 2) // rps * rps
+    for n in (rps, 4 * rps):
+        band = [t.narrow(0, 16 * r0 // c, 16 * n // c)
+                for t, c in zip((cur, *ref), (1, 1, cdiv, cdiv))]
+        bqp = qp.narrow(0, r0, n)
+        ko = kern(*band, bqp, cands, win)
+        err = max_abs_err(ko, plain(*band, bqp, cands, win))
+        check(err == 0, f"{name} ({n}-row band) differs (err {err})")
+        ms = time_fn(lambda: kern(*band, bqp, cands, win, out=ko), 20,
+                     flush=flush, hide_launch=True)
+        point(f"{name} band{n}", ms, nbytes(*band, bqp, *ko),
+              3 * 256 * len(cands) * n * M)
 
 
 def kernel_checks(frames, sess, grown) -> dict:
@@ -692,7 +720,10 @@ def kernel_checks(frames, sess, grown) -> dict:
     out["motion_select"] = (err, ms, pms,
                             nbytes(p_planes[0], *i_ref, qp, *ko),
                             3 * 256 * len(cands) * R * M, None)
+    point("motion_select 1080p", ms, *out["motion_select"][3:5], pms)
     pred, mv = ko[:3], ko[3]
+    motion_points("motion_select", motion_select, motion_select_plain,
+                  p_planes[0], i_ref, qp, cands, win, rps, 2, flush)
 
     # K2-P on K5's prediction, the reference rewritten for sent rows
     kref = [t.clone() for t in i_ref]
@@ -967,7 +998,11 @@ def kernel444_checks(frames, sess, grown) -> dict:
     out["motion_select444"] = (err, ms, pms,
                                nbytes(p_planes[0], *i_ref, qp, *ko),
                                3 * 256 * len(cands) * R * M, None)
+    point("motion_select444 1080p", ms, *out["motion_select444"][3:5], pms)
     pred, mv = ko[:3], ko[3]
+    motion_points("motion_select444", motion_select444,
+                  motion_select444_plain, p_planes[0], i_ref, qp, cands, win,
+                  rps, 1, flush)
 
     # K15 on that prediction, the reference rewritten for sent rows
     kref = [t.clone() for t in i_ref]
@@ -999,12 +1034,30 @@ def kernel444_checks(frames, sess, grown) -> dict:
         err = max_abs_err(ko, po)
         check(err == 0, f"cavlc_events444 (intra={intra}) differs "
               f"(err {err})")
+        mode = "I" if intra else "P"
+        ms = time_fn(lambda: H4.cavlc_events444(lv, cbp, intra), 20,
+                     flush=flush, hide_launch=True)
+        pms = time_fn(lambda: H4.cavlc_events444_plain(lv, cbp, intra), 3)
+        rec = (err, ms, pms, nbytes(lv, cbp, *ko),
+               30 * 36 * (51 if intra else 48) * R * M, None)
+        point(f"cavlc_events444 {mode}", ms, *rec[3:5], pms)
         if intra:
-            ms = time_fn(lambda: H4.cavlc_events444(lv, cbp, True), 20,
-                         flush=flush, hide_launch=True)
-            pms = time_fn(lambda: H4.cavlc_events444_plain(lv, cbp, True), 3)
-            out["cavlc_events444"] = (err, ms, pms, nbytes(lv, cbp, *ko),
-                                      30 * 36 * 51 * R * M, None)
+            out["cavlc_events444"] = rec
+        else:
+            # the P events of bands of 4 and 16 rows (views, as the band
+            # step hands them over)
+            for n in (rps, 4 * rps):
+                r0 = (R // 2) // rps * rps
+                blv, bcbp = lv.narrow(0, r0, n), cbp.narrow(0, r0, n)
+                bev = H4.cavlc_events444(blv, bcbp, False)
+                err = max_abs_err(bev, H4.cavlc_events444_plain(blv, bcbp,
+                                                                False))
+                check(err == 0, f"cavlc_events444 ({n}-row band) differs "
+                      f"(err {err})")
+                ms = time_fn(lambda: H4.cavlc_events444(blv, bcbp, False),
+                             20, flush=flush, hide_launch=True)
+                point(f"cavlc_events444 P band{n}", ms,
+                      nbytes(blv, bcbp, *bev), 30 * 36 * 48 * n * M)
         row_hp = sess._hdr_pay if intra else sess._p_hdr_pay
         row_hn = sess._hdr_nb if intra else sess._p_hdr_nb
         row_id = torch.arange(R, dtype=torch.int32, device=dev) % 16
@@ -2439,6 +2492,8 @@ def stripe_kernel_checks(frames, dev) -> dict:
         out[f"motion_select_halo{sfx}"] = (
             err, ms, pms, nbytes(cur, *bands, qp, *ko),
             3 * 256 * len(cands) * R * M, None)
+        point(f"motion_select_halo{sfx} {STRIPE_SHARDS} shards",
+              *(out[f"motion_select_halo{sfx}"][k] for k in (1, 3, 4, 2)))
     # K4's seat entry on the 4:4:4 I events of the four shards
     y, u, v = stripe_planes(f0, True)
     g = plan_h264_grid(CaptureSettings(capture_width=WIDTH,
@@ -2448,6 +2503,13 @@ def stripe_kernel_checks(frames, dev) -> dict:
     rec = [torch.empty_like(p) for p in (y, u, v)]
     lv, cbp, hp, hn = H4.mb_encode_i444(y, u, v, qp, send, R, *rec)
     ev = H4.cavlc_events444(lv, cbp, True)
+    err = max_abs_err(ev, H4.cavlc_events444_plain(lv, cbp, True))
+    check(err == 0, f"cavlc_events444 on {STRIPE_SHARDS} shards differs "
+          f"(err {err})")
+    ms = time_fn(lambda: H4.cavlc_events444(lv, cbp, True), 20, flush=flush,
+                 hide_launch=True)
+    point(f"cavlc_events444 I {STRIPE_SHARDS} shards", ms,
+          nbytes(lv, cbp, *ev), 30 * 36 * 51 * R * M)
     row_hp, row_hn = (torch.as_tensor(a.astype(np.int32), device=dev)
                       for a in hcodec.slice_header_events(M, R))
     row_id = torch.arange(R, dtype=torch.int32, device=dev) % 16
@@ -2693,6 +2755,7 @@ def main() -> int:
                                      "typing_P": (base, typed, False)})
     step_times = step_device_times(dsettings, base, seq[1][1], typed)
     fdsettings = dataclasses.replace(dsettings, fullcolor=True)
+    fstep_times = step_device_times(fdsettings, base, seq[1][1], typed)
     ftimes = frame_times(fdsettings, {"I": (base, base, True),
                                       "scroll_P": (base, seq[1][1], False),
                                       "typing_P": (base, typed, False)})
@@ -2729,6 +2792,9 @@ def main() -> int:
     print("step device times, default configuration (ms between CUDA "
           f"events, {g.width}x{g.height}, stock caps, L2 flushed, median of "
           "7): " + json.dumps(step_times))
+    print("step device times, fullcolor default configuration (ms between "
+          f"CUDA events, {g.width}x{g.height}, stock 4:4:4 caps, L2 "
+          "flushed, median of 7): " + json.dumps(fstep_times))
     print(f"fullcolor path launches: {json.dumps(fc['launches'])}")
     for k, (err, ms, _, by, ops, _) in k4_444.items():
         point(k, ms, by, ops)
@@ -2781,7 +2847,8 @@ def main() -> int:
               f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
-    print("K3 / K4 timing points (ms between CUDA events after an L2 "
+    print("K3 / K4 / K16 / K5 / K19 timing points (ms between CUDA events "
+          "after an L2 "
           "flush, median of 20; bound and plain ms as in the kernels "
           "line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")

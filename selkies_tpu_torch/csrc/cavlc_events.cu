@@ -158,6 +158,54 @@ constexpr int K3_THREADS = 128;   // >= K3_MBS * N_BLOCKS
 constexpr int LV_MB = N_BLOCKS * 16;                  // levels an MB
 constexpr int SB_MAX = 876;                           // I slots an MB
 
+// K3 and K16's shared steps, T threads a block: the stage zeroed (n
+// slots of payload and nb), the threads whose ``on`` is set compacted in
+// thread order into work[0 .. count - 1] (two block barriers; -> count),
+// and the stage out to ev_pay / ev_nb with 16-byte stores (both spans
+// start 16-byte aligned, n % 4 == 0)
+template <int T>
+__device__ __forceinline__ void zero_stage(int* pay_s, uint8_t* nb_s, int n,
+                                           int tid) {
+  uint4* zp = reinterpret_cast<uint4*>(pay_s);
+  for (int i = tid; i < n / 4; i += T) zp[i] = make_uint4(0u, 0u, 0u, 0u);
+  uint4* zn = reinterpret_cast<uint4*>(nb_s);
+  for (int i = tid; i < (n + 15) / 16; i += T)
+    zn[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <int T>
+__device__ __forceinline__ int compact(bool on, short* work, int* warp_n,
+                                       int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned bal = __ballot_sync(0xffffffffu, on);
+  if (lane == 0) warp_n[warp] = __popc(bal);
+  __syncthreads();
+  int rank = __popc(bal & ((1u << lane) - 1u)), count = 0;
+  for (int w = 0; w < T / 32; w++) {
+    if (w < warp) rank += warp_n[w];
+    count += warp_n[w];
+  }
+  if (on) work[rank] = static_cast<short>(tid);
+  __syncthreads();
+  return count;
+}
+
+template <int T>
+__device__ __forceinline__ void store_stage(int* ev_pay, uint8_t* ev_nb,
+                                            const int* pay_s,
+                                            const uint8_t* nb_s, int n,
+                                            int tid) {
+  uint4* dp = reinterpret_cast<uint4*>(ev_pay);
+  const uint4* sp = reinterpret_cast<const uint4*>(pay_s);
+  for (int i = tid; i < n / 4; i += T) dp[i] = sp[i];
+  uint4* dn = reinterpret_cast<uint4*>(ev_nb);
+  const uint4* sn = reinterpret_cast<const uint4*>(nb_s);
+  for (int i = tid; i < n / 16; i += T) dn[i] = sn[i];
+  unsigned* dt = reinterpret_cast<unsigned*>(ev_nb);
+  const unsigned* st = reinterpret_cast<const unsigned*>(nb_s);
+  for (int i = n / 16 * 4 + tid; i < n / 4; i += T) dt[i] = st[i];
+}
+
 // nonzero int16 lanes among the first ``mc`` (15 or 16) of a 32-byte block
 __device__ __forceinline__ int nz16(const int16_t* blk16, int mc) {
   const uint4 a = reinterpret_cast<const uint4*>(blk16)[0];
@@ -182,7 +230,7 @@ cavlc_events_kernel(const int16_t* __restrict__ lv,
   __shared__ int cb_s[K3_MBS + 1];
   __shared__ short work[K3_MBS * N_BLOCKS];
   __shared__ int warp_n[K3_THREADS / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int SB = intra ? 876 : 872;
   const long long g0 = static_cast<long long>(blockIdx.x) * K3_MBS;
   const int nm = static_cast<int>(min(static_cast<long long>(K3_MBS),
@@ -194,12 +242,7 @@ cavlc_events_kernel(const int16_t* __restrict__ lv,
     uint4* dst = reinterpret_cast<uint4*>(&lvs[1 + first][0]);
     const int n16 = (nm - first) * (LV_MB / 8);
     for (int i = tid; i < n16; i += K3_THREADS) dst[i] = src[i];
-    uint4* zp = reinterpret_cast<uint4*>(pay_s);
-    for (int i = tid; i < nm * SB / 4; i += K3_THREADS)
-      zp[i] = make_uint4(0u, 0u, 0u, 0u);
-    uint4* zn = reinterpret_cast<uint4*>(nb_s);
-    for (int i = tid; i < (nm * SB + 15) / 16; i += K3_THREADS)
-      zn[i] = make_uint4(0u, 0u, 0u, 0u);
+    zero_stage<K3_THREADS>(pay_s, nb_s, nm * SB, tid);
     if (tid < nm - first) cb_s[1 + first + tid] = cbp[g0 + first + tid];
   }
   __syncthreads();
@@ -233,16 +276,7 @@ cavlc_events_kernel(const int16_t* __restrict__ lv,
       on = blk <= 18 ? cc > 0 : cc == 2;
     }
   }
-  const unsigned bal = __ballot_sync(0xffffffffu, on);
-  if (lane == 0) warp_n[warp] = __popc(bal);
-  __syncthreads();
-  int rank = __popc(bal & ((1u << lane) - 1u)), count = 0;
-  for (int w = 0; w < K3_THREADS / 32; w++) {
-    if (w < warp) rank += warp_n[w];
-    count += warp_n[w];
-  }
-  if (on) work[rank] = static_cast<short>(tid);
-  __syncthreads();
+  const int count = compact<K3_THREADS>(on, work, warp_n, tid);
   for (int t = tid; t < count; t += K3_THREADS) {
     const int item = work[t];
     const int j = item / N_BLOCKS, blk = item % N_BLOCKS;
@@ -280,19 +314,8 @@ cavlc_events_kernel(const int16_t* __restrict__ lv,
                       true, pay_s + j * SB + base, nb_s + j * SB + base);
   }
   __syncthreads();
-  // the stage out: 16-byte stores (both spans start 16-byte aligned)
-  {
-    uint4* dp = reinterpret_cast<uint4*>(ev_pay + g0 * SB);
-    const uint4* sp = reinterpret_cast<const uint4*>(pay_s);
-    for (int i = tid; i < nm * SB / 4; i += K3_THREADS) dp[i] = sp[i];
-    const int n = nm * SB;
-    uint4* dn = reinterpret_cast<uint4*>(ev_nb + g0 * SB);
-    const uint4* sn = reinterpret_cast<const uint4*>(nb_s);
-    for (int i = tid; i < n / 16; i += K3_THREADS) dn[i] = sn[i];
-    unsigned* dt = reinterpret_cast<unsigned*>(ev_nb + g0 * SB);
-    const unsigned* st = reinterpret_cast<const unsigned*>(nb_s);
-    for (int i = n / 16 * 4 + tid; i < n / 4; i += K3_THREADS) dt[i] = st[i];
-  }
+  store_stage<K3_THREADS>(ev_pay + g0 * SB, ev_nb + g0 * SB, pay_s, nb_s,
+                          nm * SB, tid);
 }
 
 extern "C" int cavlc_events(const int16_t* lv, const int* cbp, int* ev_pay,
@@ -315,77 +338,130 @@ extern "C" int cavlc_events(const int16_t* lv, const int* cbp, int* ev_pay,
 // loops of selkies_tpu/ops/h264_planes444.py:h264_encode_yuv444 and
 // h264_encode_p_yuv444 (nC from _nc_planes of the component's own gated
 // total-coeff plane, the DC block's nC = nc[0::4, 0::4], no chroma DC
-// class). Bound: bytes (~71 MB of events out at 1080p). Design: one warp
-// per (MB, component), one lane per block: I 17 (DC, 16 AC blocks of 15
-// levels), P 16 (16 levels); gates from cbp's low four bits (I: the
-// shared AC flag, P: the 8x8 group bits that cover every component).
-__device__ __forceinline__ int count_nz(const int16_t* c, int mc) {
-  int n = 0;
-  for (int k = 0; k < mc; k++) n += c[k] != 0;
-  return n;
-}
+// class): per MB three components, each (I) a DC block of 16 levels and
+// 16 AC blocks of 15, or (P) 16 blocks of 16; gates from cbp's low four
+// bits (I: the shared AC flag, P: the 8x8 group bits that cover every
+// component).
+//
+// Bound on the H100: bytes (~13 MB of levels in, 8160 MBs x 1740 / 1728
+// slots x 5 bytes = ~71 MB of events out at 1080p).
+// What held the first design back: one warp per (MB, component)
+// and one lane per block, so 15-16 of every 32 lanes idled; each lane
+// wrote its block's slots straight to device memory, lanes 34 slots
+// apart (every 4- and 1-byte store of a warp touching ~17 sectors, every
+// zero slot written alone); and each lane recounted its left and upper
+// neighbours' total-coeff from device memory, byte by byte, so the
+// levels were read up to three times.
+// Design now: K3's (above) on the 4:4:4 layout. One block of 256 threads
+// per 4 consecutive MBs stages their levels (1632 / 1536 B each) and the
+// left neighbour of the first (when it is in the same row) with 16-byte
+// loads, counts the gated total-coeff of every (MB, component, 4x4
+// block) once into shared memory (nC's neighbours read from there),
+// compacts the gated-on blocks onto the first threads with a ballot and
+// builds the 4 MBs' slots with cavlc_block<true> in a zeroed shared stage
+// (34.8 KB), which leaves with 16-byte coalesced stores: 4 x 1740 and
+// 4 x 1728 bytes of nb are multiples of 16, so every block's spans start
+// 16-byte aligned. ~43 KB of static shared memory a block: 5 blocks an
+// SM. Nothing else was tried: this design came within 2x of the bound
+// (0.046 ms at 1080p I on the H100) on its first run.
+constexpr int K16_MBS = 4;          // MBs a block (nb spans 16-byte aligned)
+constexpr int K16_THREADS = 256;    // >= K16_MBS * NB_I444
+constexpr int K16_SB_MAX = 1740;    // I slots an MB
 
-__device__ __forceinline__ int tc444(const int16_t* lv, const int* cbp,
-                                     int r, int m, int M, int c, int b,
-                                     bool intra) {
-  const int cb = cbp[r * M + m];
-  const int g8 = ((b >> 2) >> 1) * 2 + ((b & 3) >> 1);
-  const bool gate = intra ? (cb & 15) != 0 : ((cb >> g8) & 1) != 0;
-  if (!gate) return 0;
-  const int nblk = intra ? NB_I444 : NB_P444;
-  const int slot = intra ? 17 * c + 1 + K_CODING_OF_RASTER[b]
-                         : 16 * c + K_CODING_OF_RASTER[b];
-  return count_nz(lv + ((static_cast<size_t>(r) * M + m) * nblk + slot) * 16,
-                  intra ? 15 : 16);
-}
-
-__global__ void cavlc_events444_kernel(const int16_t* __restrict__ lv,
-                                       const int* __restrict__ cbp,
-                                       int* __restrict__ ev_pay,
-                                       uint8_t* __restrict__ ev_nb, int R,
-                                       int M, int intra) {
-  const int lane = threadIdx.x & 31;
-  const int wg = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int g = wg / 3, c = wg % 3;
-  if (g >= R * M) return;
-  const int r = g / M, m = g % M;
-  const int SB = intra ? 1740 : 1728;
-  const int nblk = intra ? NB_I444 : NB_P444;
-  const size_t mb = static_cast<size_t>(g) * SB + (intra ? 580 : 576) * c;
-  int* pay = ev_pay + mb;
-  uint8_t* nb = ev_nb + mb;
-  const int16_t* lv_mb = lv + static_cast<size_t>(g) * nblk * 16;
-  if (intra && lane == 0) {
-    // DC block: nC of block (0, 0), i.e. the left MB's block (0, 3)
-    const int nc = m > 0 ? tc444(lv, cbp, r, m - 1, M, c, 3, true) : 0;
-    cavlc_block<false>(lv_mb + 17 * c * 16, 16, nc, false, true, pay, nb);
-    return;
+__global__ void __launch_bounds__(K16_THREADS)
+cavlc_events444_kernel(const int16_t* __restrict__ lv,
+                       const int* __restrict__ cbp, int* __restrict__ ev_pay,
+                       uint8_t* __restrict__ ev_nb, int R, int M, int intra) {
+  // MB j of the block at index j + 1 (LVS levels each); index 0 the first
+  // MB's left one
+  __shared__ __align__(16) int16_t lvs[(K16_MBS + 1) * NB_I444 * 16];
+  __shared__ __align__(16) int pay_s[K16_MBS * K16_SB_MAX];
+  __shared__ __align__(16) uint8_t nb_s[K16_MBS * K16_SB_MAX];
+  __shared__ uint8_t tc_s[K16_MBS + 1][48];   // component x raster block
+  __shared__ int cb_s[K16_MBS + 1];
+  __shared__ short work[K16_MBS * NB_I444];
+  __shared__ int warp_n[K16_THREADS / 32];
+  const int tid = threadIdx.x;
+  const int SB = intra ? 1740 : 1728, NB = intra ? NB_I444 : NB_P444;
+  const int LVS = NB * 16, mc = intra ? 15 : 16;
+  const long long g0 = static_cast<long long>(blockIdx.x) * K16_MBS;
+  const int nm = static_cast<int>(min(static_cast<long long>(K16_MBS),
+                                      static_cast<long long>(R) * M - g0));
+  const int first = g0 % M ? -1 : 0;   // stage the left neighbour too
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(lv + (g0 + first)
+                                                      * LVS);
+    uint4* dst = reinterpret_cast<uint4*>(lvs + (1 + first) * LVS);
+    const int n16 = (nm - first) * (LVS / 8);
+    for (int i = tid; i < n16; i += K16_THREADS) dst[i] = src[i];
+    zero_stage<K16_THREADS>(pay_s, nb_s, nm * SB, tid);
+    if (tid < nm - first) cb_s[1 + first + tid] = cbp[g0 + first + tid];
   }
-  const int k = intra ? lane - 1 : lane;
-  if (k < 0 || k >= 16) return;
-  const int b = K_SCAN_RASTER[k];
-  const int by = b >> 2, bx = b & 3;
-  const int mc = intra ? 15 : 16;
-  const int base = intra ? 36 + 34 * k : 36 * k;
-  const int cb = cbp[g];
-  const bool gate = intra ? (cb & 15) != 0
-                          : ((cb >> ((by >> 1) * 2 + (bx >> 1))) & 1) != 0;
-  int na = 0, nbv = 0;
-  const bool a = bx > 0 || m > 0, up = by > 0;
-  if (bx > 0) na = tc444(lv, cbp, r, m, M, c, b - 1, intra);
-  else if (m > 0) na = tc444(lv, cbp, r, m - 1, M, c, by * 4 + 3, intra);
-  if (up) nbv = tc444(lv, cbp, r, m, M, c, b - 4, intra);
-  const int slot = intra ? 17 * c + 1 + k : 16 * c + k;
-  cavlc_block<false>(lv_mb + slot * 16, mc, nc_combine(a, na, up, nbv),
-                     false, gate, pay + base, nb + base);
+  __syncthreads();
+  // gated total-coeff counts: 3 x 16 (raster) blocks of every staged MB
+  for (int i = tid; i < (nm - first) * 48; i += K16_THREADS) {
+    const int jj = 1 + first + i / 48, cb = i % 48;
+    const int c = cb >> 4, b = cb & 15, cbv = cb_s[jj];
+    const int g8 = ((b >> 2) >> 1) * 2 + ((b & 3) >> 1);
+    int n = 0;
+    if (intra ? (cbv & 15) != 0 : ((cbv >> g8) & 1) != 0)
+      n = nz16(lvs + jj * LVS + ((intra ? 17 * c + 1 : 16 * c)
+                                 + scan_raster(b)) * 16, mc);
+    tc_s[jj][cb] = static_cast<uint8_t>(n);
+  }
+  // the blocks whose gate is on, compacted onto the first threads
+  bool on = false;
+  if (tid < nm * NB) {
+    const int j = tid / NB, blk = tid % NB;
+    const int cbv = cb_s[1 + j];
+    if (intra) {
+      on = blk % 17 == 0 || (cbv & 15) != 0;       // DC always
+    } else {
+      const int b = scan_raster(blk & 15);
+      on = ((cbv >> (((b >> 2) >> 1) * 2 + ((b & 3) >> 1))) & 1) != 0;
+    }
+  }
+  const int count = compact<K16_THREADS>(on, work, warp_n, tid);
+  for (int t = tid; t < count; t += K16_THREADS) {
+    const int item = work[t];
+    const int j = item / NB, blk = item % NB;
+    const bool left = (g0 + j) % M != 0;      // the left MB (m > 0)
+    const int c = intra ? blk / 17 : blk >> 4;
+    const int k = intra ? blk % 17 - 1 : blk & 15;   // -1: the DC block
+    const uint8_t* tcs = tc_s[1 + j] + 16 * c;
+    const uint8_t* tcl = tc_s[j] + 16 * c;
+    int nc, base;
+    if (k < 0) {
+      // DC block: nC of block (0, 0), i.e. the left MB's block (0, 3)
+      nc = left ? tcl[3] : 0;
+      base = 580 * c;
+    } else {
+      const int b = scan_raster(k), by = b >> 2, bx = b & 3;
+      const int na = bx > 0 ? tcs[b - 1] : (left ? tcl[by * 4 + 3] : 0);
+      nc = nc_combine(bx > 0 || left, na, by > 0, by > 0 ? tcs[b - 4] : 0);
+      base = intra ? 580 * c + 36 + 34 * k : 576 * c + 36 * k;
+    }
+    cavlc_block<true>(lvs + (1 + j) * LVS + blk * 16, k < 0 ? 16 : mc, nc,
+                      false, true, pay_s + j * SB + base,
+                      nb_s + j * SB + base);
+  }
+  __syncthreads();
+  store_stage<K16_THREADS>(ev_pay + g0 * SB, ev_nb + g0 * SB, pay_s, nb_s,
+                           nm * SB, tid);
 }
 
 extern "C" int cavlc_events444(const int16_t* lv, const int* cbp, int* ev_pay,
                                uint8_t* ev_nb, int R, int M, int intra,
                                void* stream) {
-  const int per_block = 6;                     // two MBs, three warps each
-  const int blocks = (3 * R * M + per_block - 1) / per_block;
-  cavlc_events444_kernel<<<blocks, 32 * per_block, 0,
+  if (R <= 0 || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte staging loads and stores
+  if ((reinterpret_cast<uintptr_t>(lv) | reinterpret_cast<uintptr_t>(ev_pay)
+       | reinterpret_cast<uintptr_t>(ev_nb)) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const long long mbs = static_cast<long long>(R) * M;
+  cavlc_events444_kernel<<<static_cast<unsigned>((mbs + K16_MBS - 1)
+                                                 / K16_MBS),
+                           K16_THREADS, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       lv, cbp, ev_pay, ev_nb, R, M, intra);
   return static_cast<int>(cudaGetLastError());

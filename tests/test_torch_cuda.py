@@ -26,8 +26,18 @@ bands of 1, 2, 4 and 5 rows at 45 and 63 MBs a row (as views, their nb
 rows off 16-byte boundaries), 28-bit escapes at QP 0 on noise past K4's
 shared words, e_cap overflow alone, spills into the next row and off a
 seat's end at 1, 3 and 8 seats, out_cap at the total and one byte less,
-4:4:4 through both K4 entries with K16, and a 1080p frame) and must
-match it exactly, overflow flags included. Tolerance: 0.
+4:4:4 through both K4 entries with K16, and a 1080p frame; for K16
+rows of 1, 45 and 63 MBs, so a block of 4 MBs spans a row start, 28-bit
+escapes at QP 0, P rows with every 8x8 group gated off and each group
+bit alone, bands of 1, 2, 4 and 5 rows as views and a misaligned level
+array, which is refused; for K5 and K19, all four entries, rows of 45
+and 63 MBs at 4 and 2 MBs a block, row groups of 4 and 5 MB rows, W =
+16, 16- and 64-row windows, 1, 57
+and 128 candidates with |dy| and |dx| up to 64, a flat frame where the
+lambda and then the lowest index decide, an exact tie between (3, 0) and
+(-3, 0), per-row qp at 0, 51 and out of range, and a misaligned plane,
+which is refused) and must match it exactly, overflow flags included.
+Tolerance: 0.
 """
 
 import numpy as np
@@ -1480,3 +1490,235 @@ def test_k3_k4_at_1080p(dev, intra):
     caps, kernel == plain."""
     out = _band_frame(dev, 1920, 68, intra, 3)
     _k3_k4(dev, out, intra, w_cap=23040, out_cap=345600, qp=24)
+
+
+# ------------------------------------------------ K16 and K5 (redesigned)
+def _k16_case(dev, rng, R, M, intra, cbp=None, level_max=3):
+    """Synthetic K16 inputs: sparse random levels and cbp (I: the AC flag
+    and chroma bits, P: random 8x8 group bits unless ``cbp`` is given)."""
+    nb = 51 if intra else 48
+    lv = rng.integers(-level_max, level_max + 1, (R, M, nb, 16))
+    lv *= rng.random((R, M, nb, 16)) < 0.3
+    if cbp is None:
+        cbp = rng.integers(0, 48, (R, M))
+    return (torch.as_tensor(lv.astype(np.int16), device=dev),
+            torch.as_tensor(np.asarray(cbp, np.int32), device=dev))
+
+
+def _k16_same(lv, cbp, intra):
+    ev = H4.cavlc_events444(lv, cbp, intra)
+    _same(ev, H4.cavlc_events444_plain(lv, cbp, intra))
+    return ev
+
+
+@pytest.mark.parametrize("intra", [True, False])
+@pytest.mark.parametrize("M", [1, 45, 63])
+def test_k16_blocks_across_row_starts(dev, M, intra):
+    """Rows of 1, 45 and 63 MBs (not multiples of K16's 4 MBs a block):
+    a block spans a row start and must not take the MB before it as its
+    left neighbour."""
+    rng = np.random.default_rng(100 + M)
+    lv, cbp = _k16_case(dev, rng, 5, M, intra)
+    _k16_same(lv, cbp, intra)
+
+
+@pytest.mark.parametrize("intra", [True, False])
+def test_k16_escapes_at_qp0_on_noise(dev, intra):
+    """4:4:4 noise at QP 0 through K14 / K15: 28-bit level escapes."""
+    rng = np.random.default_rng(21)
+    H, W = 32, 720
+    planes = [rng.integers(0, 256, (H, W), dtype=np.uint8)
+              for _ in range(3)]
+    ref = [rng.integers(0, 256, (H, W), dtype=np.uint8) for _ in range(3)]
+    lv, cbp, _, _ = _k2_plain(dev, planes, ref, 0, intra, H4)
+    ev = _k16_same(lv, cbp, intra)
+    assert int(ev[1].max()) == 28
+
+
+def test_k16_p_gates_each_group_bit_alone(dev):
+    """P rows whose MBs have every 8x8 group gated off, then each group
+    bit alone, then all four (levels everywhere, so a gated-off block
+    that leaked would show)."""
+    rng = np.random.default_rng(31)
+    M = 45
+    cbp = np.zeros((6, M), np.int32)
+    for g in range(4):
+        cbp[1 + g] = 1 << g
+    cbp[5] = 15 | 32
+    lv, cbp = _k16_case(dev, rng, 6, M, False, cbp)
+    ev = _k16_same(lv, cbp, False)
+    assert int(ev[1][0].sum()) == 0
+
+
+@pytest.mark.parametrize("intra", [True, False])
+@pytest.mark.parametrize("W", [720, 1008])
+@pytest.mark.parametrize("rows", [1, 2, 4, 5])
+def test_k16_bands_as_views(dev, rows, W, intra):
+    """Bands of 1, 2, 4 and 5 MB rows (rows 1.. of a 6-row 4:4:4 frame,
+    as views, as the band step hands them over) at 45 and 63 MBs a row,
+    each equal to its rows of the whole frame's events."""
+    rng = np.random.default_rng(rows * W)
+    lv, cbp = _k16_case(dev, rng, 6, W // 16, intra)
+    whole = _k16_same(lv, cbp, intra)
+    band = slice(1, 1 + rows)
+    ev = _k16_same(lv[band], cbp[band], intra)
+    _same(ev, [t[band] for t in whole])
+
+
+def test_k16_refuses_misaligned_levels(dev):
+    """16-byte staging: a level array off a 16-byte boundary raises."""
+    rng = np.random.default_rng(3)
+    lv, cbp = _k16_case(dev, rng, 2, 3, True)
+    flat = torch.zeros(lv.numel() + 8, dtype=torch.int16, device=dev)
+    off = flat[4:4 + lv.numel()].view(lv.shape)
+    off.copy_(lv)
+    with pytest.raises(RuntimeError, match="cavlc_events444"):
+        H4.cavlc_events444(off, cbp, True)
+
+
+def _k5_entries(dev, cur, ref, qp, cands, win, full):
+    """K5 (or its 4:4:4 entry) against its plain version, then K19 on two
+    shards' halo bands of the same reference (one for an odd number of
+    MB rows) against its plain version and against K5 (tolerance 0).
+    -> K5's outputs."""
+    from selkies_tpu_torch.parallel import stripes as ST
+    k5, p5 = (TE.motion_select444, TE.motion_select444_plain) if full \
+        else (TE.motion_select, TE.motion_select_plain)
+    got = k5(cur, *ref, qp, cands, win)
+    _same(got, p5(cur, *ref, qp, cands, win))
+    H = cur.shape[0]
+    band = H // (2 - (H // 16) % 2)
+    vmax = max(abs(dy) for dy, _ in cands)
+    halo_c = vmax if full else vmax // 2 + 1
+    bands = [ST.halo_bands(ref[0], band, vmax)] + [
+        ST.halo_bands(p, band if full else band // 2, halo_c)
+        for p in ref[1:]]
+    kern, plain = (ST.motion_select_halo444, ST.motion_select_halo444_plain) \
+        if full else (ST.motion_select_halo, ST.motion_select_halo_plain)
+    hg = kern(cur, *bands, qp, cands, win)
+    _same(hg, plain(cur, *bands, qp, cands, win))
+    _same(hg, got)
+    return got
+
+
+def _k5_frame(dev, H, W, full, seed, qp=None):
+    """Random reference planes; the current luma scrolled by 3 rows on
+    the left half, by -5 rows and 2 columns on the right, noise in its
+    second MB column (when it has one)."""
+    rng = np.random.default_rng(seed)
+    c = 1 if full else 2
+    ref = [torch.as_tensor(rng.integers(0, 256, s, dtype=np.uint8),
+                           device=dev)
+           for s in ((H, W), (H // c, W // c), (H // c, W // c))]
+    cur = torch.roll(ref[0], -3, 0)
+    cur[:, W // 2:] = torch.roll(ref[0], (5, -2), (0, 1))[:, W // 2:]
+    if W > 16:
+        cur[:, 16:32] = torch.as_tensor(
+            rng.integers(0, 256, (H, 16), dtype=np.uint8), device=dev)
+    if qp is None:
+        qp = rng.integers(0, 52, H // 16)
+    return cur.contiguous(), ref, torch.as_tensor(
+        np.asarray(qp, np.int32), device=dev)
+
+
+def _wide_candidates(n, seed=13):
+    """(0, 0), the four extremes at 64 and distinct random (dy, dx) with
+    |dy|, |dx| <= 64: ``n`` candidates."""
+    rng = np.random.default_rng(seed)
+    c = [(0, 0), (64, 0), (-64, 0), (0, 64), (0, -64), (-64, 64)][:n]
+    while len(c) < n:
+        d = tuple(int(v) for v in rng.integers(-64, 65, 2))
+        if d not in c:
+            c.append(d)
+    return tuple(c)
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("shape,ncand,win", [((288, 1008), 57, 32),
+                                             ((1088, 1008), 57, 64),
+                                             ((1408, 720), 57, 64),
+                                             ((1088, 1056), 128, 1088)])
+def test_k5_rows_not_a_multiple_of_the_blocks_mbs(dev, shape, ncand, win,
+                                                  full):
+    """Rows of 63 and 45 MBs at 2 and 4 MB columns a block (the launch
+    policy's choice for these shapes on a 132-SM H100), so each row's
+    last block is short; a whole-frame window of 68 MB rows (K5) and two
+    shards of 34 (K19) cut into row groups of 4 and 5 rows, with 128
+    candidates; all four entries."""
+    H, W = shape
+    cands = TE.scroll_candidates() if ncand == 57 \
+        else _wide_candidates(ncand)
+    cur, ref, qp = _k5_frame(dev, H, W, full, H + W + ncand)
+    got = _k5_entries(dev, cur, ref, qp, cands, win, full)
+    assert bool((got[3] != 0).any())
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("win", [16, 64])
+@pytest.mark.parametrize("ncand", [1, 57, 128])
+def test_k5_width_16_and_16_row_windows(dev, ncand, win, full):
+    """W = 16 (one MB a row: both width clamps at once), 16- and 64-row
+    windows, 1, 57 and 128 candidates (|dy| and |dx| up to 64)."""
+    cands = {1: ((-5, 3),), 57: TE.scroll_candidates()}.get(
+        ncand) or _wide_candidates(ncand)
+    cur, ref, qp = _k5_frame(dev, 64, 16, full, ncand + win)
+    _k5_entries(dev, cur, ref, qp, cands, win, full)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_k5_flat_frame_ties(dev, full):
+    """Every SAD equal: the lambda decides, then the lowest index (three
+    candidates of 8 bits; at QP 0 the lambda is 0 and index 0 wins)."""
+    H, W = 64, 96
+    c = 1 if full else 2
+    ref = [torch.full(s, 128, dtype=torch.uint8, device=dev)
+           for s in ((H, W), (H // c, W // c), (H // c, W // c))]
+    cur = torch.full((H, W), 131, dtype=torch.uint8, device=dev)
+    cands = ((4, 0), (0, 1), (0, -1), (1, 0))
+    qp = torch.as_tensor(np.array([0, 28, 51, 12], np.int32), device=dev)
+    got = _k5_entries(dev, cur, ref, qp, cands, 32, full)
+    mv = got[3].cpu().numpy()
+    assert (mv[0] == [0, 16]).all()                  # (4, 0), index 0
+    assert (mv[1:] == [4, 0]).all()                  # (0, 1), index 1
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("order", [1, -1])
+def test_k5_exact_tie_of_two_vectors(dev, full, order):
+    """A reference of period 6 rows and the frame scrolled by 3: (3, 0)
+    and (-3, 0) both match exactly at equal bits, so the lower index of
+    the two wins (either order)."""
+    H, W = 128, 64
+    rng = np.random.default_rng(8)
+    c = 1 if full else 2
+    per = rng.integers(0, 256, (6, W), dtype=np.uint8)
+    ry = np.tile(per, (H // 6 + 1, 1))[:H]
+    ref = [torch.as_tensor(ry, device=dev)] + [
+        torch.as_tensor(rng.integers(0, 256, (H // c, W // c),
+                                     dtype=np.uint8), device=dev)
+        for _ in range(2)]
+    cur = torch.as_tensor(np.roll(ry, -3, 0).copy(), device=dev)
+    cands = ((0, 0), (3 * order, 0), (-3 * order, 0))
+    qp = torch.full((H // 16,), 30, dtype=torch.int32, device=dev)
+    got = _k5_entries(dev, cur, ref, qp, cands, H, full)
+    mvy = got[3][2:-2, :, 1].cpu().numpy()
+    assert (mvy == 12 * order).all()
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_k5_qp_at_and_out_of_its_range(dev, full):
+    """Per-row qp at 0 and 51 and out of range (clipped to 0 .. 51)."""
+    qp = [0, 51, -7, 60, 1000, -1000, 25, 51]
+    cur, ref, qp = _k5_frame(dev, 128, 96, full, 4, qp)
+    _k5_entries(dev, cur, ref, qp, TE.scroll_candidates(), 32, full)
+
+
+def test_k5_refuses_misaligned_planes(dev):
+    """16-byte loads and stores: a luma plane off a 16-byte boundary
+    raises."""
+    cur, ref, qp = _k5_frame(dev, 64, 64, False, 2)
+    flat = torch.zeros(cur.numel() + 8, dtype=torch.uint8, device=dev)
+    off = flat[4:4 + cur.numel()].view(cur.shape)
+    off.copy_(cur)
+    with pytest.raises(RuntimeError, match="motion_select"):
+        TE.motion_select(off, *ref, qp, TE.scroll_candidates(), 32)

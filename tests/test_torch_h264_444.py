@@ -13,8 +13,10 @@
   ``P444Encoder``; the all-skip frame is tiny.
 - The motion search's 4:4:4 entry equals ``_motion_select444`` in the
   three prediction planes and the MV field (64x128, 32-row windows,
-  vrange 4 / hrange 2), and the P frame with motion equals the reference
-  in words and recon; a precomputed search gives the same frame.
+  vrange 4 / hrange 2; and a one-MB-wide frame with 16-row windows and
+  the widest set it takes, 128 candidates reaching |dy|, |dx| = 64), and
+  the P frame with motion equals the reference in words and recon; a
+  precomputed search gives the same frame.
 - libavcodec (the JAX package's avshim) decodes the port's Hi444PP rows
   to the port's recon; e_cap and w_cap overflows set the reference's
   flag and words.
@@ -317,6 +319,44 @@ def test_p_frame_with_motion(case):
     assert torch.equal(again.words, got.words)
     for a, t in zip(arec, trec):
         assert torch.equal(a, t)
+
+
+def _widest_candidates(n=128, seed=13):
+    """The widest set K5 takes: (0, 0), extremes at 64 and distinct random
+    (dy, dx) with |dy|, |dx| <= 64."""
+    rng = np.random.default_rng(seed)
+    c = [(0, 0), (64, 0), (-64, 0), (0, 64), (0, -64), (-64, 64)]
+    while len(c) < n:
+        d = tuple(int(v) for v in rng.integers(-64, 65, 2))
+        if d not in c:
+            c.append(d)
+    return tuple(c)
+
+
+@pytest.mark.parametrize("case", ["texture", "flat", "qp_range"])
+def test_motion_select444_widest_candidates_at_width_16(case):
+    """The 4:4:4 search with 128 candidates reaching |dy|, |dx| = 64 on a
+    one-MB-wide frame with 16-row windows (both width clamps at once, the
+    chroma planes riding the same clamps); a flat frame where every SAD
+    ties; per-row qp at 0, 51 and out of range."""
+    rng = np.random.default_rng(4)
+    h, w = 64, 16
+    ref = [rng.integers(0, 256, (h, w)).astype(np.uint8) for _ in range(3)]
+    cur = np.roll(np.roll(ref[0], -5, 0), 3, 1)
+    qp = np.array([28, 20, 36, 12], np.int32)
+    if case == "flat":
+        ref[0] = np.full((h, w), 90, np.uint8)
+        cur = np.full((h, w), 97, np.uint8)
+    elif case == "qp_range":
+        qp = np.array([0, 51, -9, 400], np.int32)
+    cands = _widest_candidates()
+    want = _j_select(cur.astype(np.int32),
+                     *(p.astype(np.int32) for p in ref), qp, cands, 16)
+    got = TE.motion_select444(*(torch.from_numpy(p) for p in (cur, *ref)),
+                              torch.from_numpy(qp), cands, 16)
+    for g, wv in zip(got, want):
+        assert np.array_equal(g.numpy().astype(np.int64),
+                              np.asarray(wv).astype(np.int64))
 
 
 # --------------------------------------------------------------- libavcodec

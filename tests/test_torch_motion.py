@@ -11,7 +11,10 @@ vector must win the tie. The frame entry ``h264_encode_p_yuv`` with
 totals and reconstruction, on a frame with pure-motion macroblocks (no
 residual) and neighbouring macroblocks with different non-zero vectors.
 A reduced candidate set (vrange 4, hrange 2) keeps the JAX compiles
-short; one case runs the 57-candidate default. Tolerance: 0.
+short; one case runs the 57-candidate default, and a one-MB-wide frame
+with 16-row windows runs one candidate and the widest set K5 takes (128
+candidates, |dy| and |dx| up to 64) on texture, a flat frame and per-row
+qp at and out of its range. Tolerance: 0.
 """
 
 import numpy as np
@@ -227,3 +230,57 @@ def test_pure_motion_and_neighbouring_vectors():
                    np.ones(R, np.int32))
     for a, j in zip(rec, jrec):
         assert np.array_equal(a.numpy(), np.asarray(j))
+
+
+#: the widest candidate set K5 takes: 128 candidates, |dy| and |dx| up to
+#: 64, on a one-MB-wide frame with 16-row windows
+WIDE_H, WIDE_W, WIDE_WIN = 64, 16, 16
+
+
+def _wide_candidates(n, seed=13):
+    """(0, 0), extremes at 64 and distinct random (dy, dx) with |dy|,
+    |dx| <= 64: ``n`` candidates."""
+    rng = np.random.default_rng(seed)
+    c = [(0, 0), (64, 0), (-64, 0), (0, 64), (0, -64), (-64, 64)][:n]
+    while len(c) < n:
+        d = tuple(int(v) for v in rng.integers(-64, 65, 2))
+        if d not in c:
+            c.append(d)
+    return tuple(c)
+
+
+def _wide_case(case, seed=3):
+    """-> (cur_y, ref_y, ref_u, ref_v, qp) at WIDE_H x WIDE_W."""
+    rng = np.random.default_rng(seed)
+    h, w = WIDE_H, WIDE_W
+    ref = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    ru, rv = (rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8)
+              for _ in range(2))
+    cur = _shift(ref, 5, -3)
+    qp = np.array([28, 20, 36, 12], np.int32)
+    if case == "flat":                  # every SAD equal: the lambda rules
+        ref = np.full((h, w), 90, np.uint8)
+        cur = np.full((h, w), 97, np.uint8)
+    elif case == "qp_range":            # clipped to 0 .. 51
+        qp = np.array([0, 51, -9, 400], np.int32)
+    return cur, ref, ru, rv, qp
+
+
+@pytest.mark.parametrize("ncand", [1, 128])
+@pytest.mark.parametrize("case", ["texture", "flat", "qp_range"])
+def test_motion_select_widest_candidates_at_width_16(case, ncand):
+    """One candidate, and 128 with |dy| and |dx| reaching 64 (the most K5
+    takes), on a one-MB-wide frame (both width clamps at once) with 16-row
+    windows far shorter than the shifts; a flat frame where every SAD
+    ties; per-row qp at 0, 51 and out of range."""
+    cands = ((-5, 3),) if ncand == 1 else _wide_candidates(ncand)
+    cur, ref, ru, rv, qp = _wide_case(case)
+    jo = _j_select(cur.astype(np.int32), ref.astype(np.int32),
+                   ru.astype(np.int32), rv.astype(np.int32), qp, cands,
+                   WIDE_WIN)
+    to = TE.motion_select_plain(*(torch.from_numpy(a) for a in
+                                  (cur, ref, ru, rv, qp)), cands, WIDE_WIN)
+    for j, t in zip(jo, to):
+        assert t.shape == j.shape
+        assert np.array_equal(t.numpy().astype(np.int64),
+                              np.asarray(j).astype(np.int64))
