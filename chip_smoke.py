@@ -91,7 +91,13 @@ shards; K16 on the 4:4:4 I and P inputs, on bands of 4 and 16 rows of
 the P events (views) and on the 4 shards' I events; K5 and its 4:4:4
 entry at 1080p and on bands of 4 and 16 rows (views at a stripe
 boundary, each band equal to the plain version); K19 and its 4:4:4
-entry at 4 shards (the "K3 / K4 / K16 / K5 / K19 timing points" line).
+entry at 4 shards; K2-P through both entries at 1080p, with zero motion
+(the prediction the reference planes themselves) and on bands of 4 and
+16 rows (views at a stripe boundary, each equal to the plain version,
+reference planes included); K10 at 1080p and its seat entry at 1, 2, 4
+and 8 seats, each seat count beside a ``fill_`` of the same bytes (the
+card's write rate under the same protocol, a yardstick) (the "K3 / K4 /
+K16 / K5 / K19 / K2-P / K10 timing points" line).
 The main path's three step shapes (stock I, full-frame P band,
 one-stripe P band) are timed on the device between CUDA events, the
 host's enqueue hidden behind a spin kernel, for the default session
@@ -604,7 +610,8 @@ def bound_ms(by: int, ops: int) -> float:
     return max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
 
 
-#: K3 / K4 / K16 / K5 / K19 timing points beyond the kernels line:
+#: K3 / K4 / K16 / K5 / K19 / K2-P / K10 timing points beyond the
+#: kernels line:
 #: shape -> record
 POINTS: dict = {}
 
@@ -633,6 +640,55 @@ def motion_points(name: str, kern, plain, cur, ref, qp, cands, win: int,
                      flush=flush, hide_launch=True)
         point(f"{name} band{n}", ms, nbytes(*band, bqp, *ko),
               3 * 256 * len(cands) * n * M)
+
+
+def p_coder_points(planes, qp, send_rows, pred, mv, i_ref, rps: int,
+                   flush) -> None:
+    """K2-P's row-QP entry on the 1080p P inputs with zero motion (mv
+    null, the prediction the reference planes themselves, as the stock
+    step runs it), then on bands of ``rps`` and ``4 * rps`` MB rows (views
+    at a stripe boundary of the planes, the prediction and the reference,
+    as the band step hands them over), each equal to the plain version
+    (tolerance 0, the whole reference planes included), timed as timing
+    points. The reference is restored, untimed, before each call."""
+    R, M = qp.shape[0], planes[0].shape[1] // 16
+    ops = 1200 * 24 * M
+
+    def rows(t, r0, n, c):
+        return t.narrow(0, 16 * r0 // c, 16 * n // c)
+    r0 = (R // 2) // rps * rps
+    cases = [("zero-mv", 0, R)] + [(f"band{n}", r0, n)
+                                   for n in (rps, 4 * rps)]
+    for tag, b0, n in cases:
+        def args(work, b0=b0, n=n, tag=tag):
+            bp = [rows(t, b0, n, c) for t, c in zip(planes, (1, 2, 2))]
+            bref = [rows(t, b0, n, c) for t, c in zip(work, (1, 2, 2))]
+            if tag == "zero-mv":
+                return (*bp, qp, send_rows, *bref, None, *bref)
+            bpred = [rows(t, b0, n, c) for t, c in zip(pred, (1, 2, 2))]
+            return (*bp, qp.narrow(0, b0, n), send_rows.narrow(0, b0, n),
+                    *bpred, mv.narrow(0, b0, n), *bref)
+        outs = []
+        for fn in (HP.mb_encode_p, HP.mb_encode_p_plain):
+            work = [t.clone() for t in i_ref]
+            outs.append(list(fn(*args(work))) + work)
+        err = max_abs_err(outs[0], outs[1])
+        check(err == 0, f"mb_encode_p ({tag}) differs from plain (err {err})")
+        work = [t.clone() for t in i_ref]
+        a = args(work)
+
+        def restore():
+            for w, b in zip(work, i_ref):
+                w.copy_(b)
+        ms = time_fn(lambda: HP.mb_encode_p(*a), 20, restore=restore,
+                     flush=flush, hide_launch=True)
+        frac = float(send_rows.narrow(0, b0, n).float().mean())
+        # inputs (the prediction read once, also where it is the
+        # reference) and outputs once, the reference written where sent
+        by = nbytes(*(t for t in a[:9] if t is not None),
+                    *outs[0][:4]) + int(nbytes(*a[9:]) * frac)
+        point(f"mb_encode_p {'1080p ' if tag == 'zero-mv' else ''}{tag}",
+              ms, by, ops * n)
 
 
 def kernel_checks(frames, sess, grown) -> dict:
@@ -747,6 +803,8 @@ def kernel_checks(frames, sess, grown) -> dict:
     by = nbytes(*p_planes, qp, send_rows, *pred, mv, *ko) + int(
         nbytes(*kref) * sent_frac)
     out["mb_encode_p"] = (err, ms, pms, by, 1200 * 24 * R * M, None)
+    point("mb_encode_p 1080p", ms, by, 1200 * 24 * R * M, pms)
+    p_coder_points(p_planes, qp, send_rows, pred, mv, i_ref, rps, flush)
     res = {"mb_encode_i": (i_out, i_ref), "mb_encode_p": (p_out, kref)}
     out.update(roi_kernel_checks(f0, f1, p_planes, qp, send_rows, pred, mv,
                                  i_ref, sent_frac, flush))
@@ -872,6 +930,7 @@ def roi_kernel_checks(f0, f1, p_planes, qp, send_rows, pred, mv, i_ref,
     by = nbytes(*p_planes, qp, send_rows, *pred, mv, qp_mb, *ko) + int(
         nbytes(*kref) * sent_frac)
     out["mb_encode_p_qp"] = (err, ms, pms, by, 1200 * 24 * R * M, None)
+    point("mb_encode_p_qp 1080p", ms, by, 1200 * 24 * R * M, pms)
 
     # K18 on those headers (it rewrites slot 5 in place: each call starts
     # from K2-P's output)
@@ -1739,6 +1798,7 @@ def frame_kernel_checks(dev) -> dict:
     # ~12 integer operations a byte (compares, selects, a divide)
     out["synthetic_frame"] = (err, ms, pms, nbytes(ko), 12 * ko.numel(),
                               None)
+    point("synthetic_frame 1080p", ms, nbytes(ko), 12 * ko.numel(), pms)
 
     # K11: the 1080p capture into the 1088-row grid
     frame = FR.synthetic_frame(H, W, 7, dev)
@@ -2100,6 +2160,12 @@ def seat_kernel_checks(dev, h264_caps, jpeg_caps) -> dict:
         pms = time_fn(lambda: FR.synthetic_frames_plain(GH, W, n, 7, dev), 3)
         out["synthetic_frames"][n] = (err, ms, pms, nbytes(ko),
                                       12 * ko.numel(), None)
+        point(f"synthetic_frames S={n}", ms, nbytes(ko), 12 * ko.numel(),
+              pms)
+        # the card's write rate under the same protocol, as a yardstick
+        # for K10 (fill_ writes the same bytes and computes nothing)
+        ms = time_fn(lambda: ko.fill_(7), 20, flush=flush, hide_launch=True)
+        point(f"fill_ yardstick S={n}", ms, nbytes(ko), 0)
 
         frames = FR.synthetic_frames(GH, W, n, 3, dev)
         noisy = frames.clone()
@@ -2847,10 +2913,9 @@ def main() -> int:
               f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
-    print("K3 / K4 / K16 / K5 / K19 timing points (ms between CUDA events "
-          "after an L2 "
-          "flush, median of 20; bound and plain ms as in the kernels "
-          "line): " + json.dumps(POINTS))
+    print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 timing points (ms between "
+          "CUDA events after an L2 flush, median of 20; bound and plain ms "
+          "as in the kernels line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")
     print(f"stripes path launches: {json.dumps(stripes['launches'])}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of its 1200 s "

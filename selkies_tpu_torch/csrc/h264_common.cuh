@@ -190,3 +190,136 @@ __device__ __forceinline__ bool any_nz(const int* a) {
   for (int k = 0; k < 16; k++) nz |= a[k] != 0;
   return nz;
 }
+
+// ---- K2-P's block design (mb_encode.cu): compile-time tables, quant
+// constants loaded once a thread, 4x4 blocks in a shared stage, levels
+// packed into whole slots, and rectangles staged with vector loads. The
+// helpers above stay as K2-I, K14 and K15 use them.
+
+// zigzag scan position p -> raster index (K_ZIGZAG, as nibbles)
+__host__ __device__ constexpr int zz_raster(int p) {
+  return static_cast<int>((0xfeb7adc963258410ULL >> (4 * p)) & 15);
+}
+
+// raster position k -> quant class (K_POS_CLS): 0 even/even, 1 odd/odd,
+// 2 mixed
+__host__ __device__ constexpr int pos_cls(int k) {
+  return ((k >> 2) & 1) == (k & 1) ? (k & 1) : 2;
+}
+
+// raster 4x4 block b of an MB -> its coding order (K_CODING_OF_RASTER)
+__device__ __forceinline__ int coding_of_raster(int b) {
+  return ((b >> 3) << 3) | (((b & 3) >> 1) << 2) | (((b >> 2) & 1) << 1) |
+         (b & 1);
+}
+
+// _quant_plane / _dequant_plane / _quant_dc_e / _dequant_cdc_e of one QP,
+// their table entries read once: quant (|w| * mf + f) >> qbits; dequant
+// (c * ls + dadd) >> dsh, which is c * 16v * 2^(qp/6 - 4) for qp/6 >= 4
+// and (c * 16v + 2^(3 - qp/6)) >> (4 - qp/6) below.
+struct QuantP {
+  int mf[3], ls[3];
+  int f, qbits, dadd, dsh;
+};
+
+__device__ __forceinline__ QuantP quant_p_consts(int qp, int fdiv) {
+  QuantP q;
+  const int qd = qp / 6, qm = qp % 6;
+  q.qbits = 15 + qd;
+  q.f = (1 << q.qbits) / fdiv;
+  const int mul = qd >= 4 ? 1 << (qd - 4) : 1;
+#pragma unroll
+  for (int c = 0; c < 3; c++) {
+    q.mf[c] = K_MF[qm * 3 + c];
+    q.ls[c] = 16 * K_V[qm * 3 + c] * mul;
+  }
+  q.dadd = qd >= 4 ? 0 : 1 << (3 - qd);
+  q.dsh = qd >= 4 ? 0 : 4 - qd;
+  return q;
+}
+
+__device__ __forceinline__ int quant_p(int w, int mf, int f, int qbits) {
+  const int mag = ((w < 0 ? -w : w) * mf + f) >> qbits;
+  return clampi(w < 0 ? -mag : mag, -LEVEL_CLAMP, LEVEL_CLAMP);
+}
+
+__device__ __forceinline__ int dequant_p(int c, int ls, int dadd, int dsh) {
+  return (c * ls + dadd) >> dsh;
+}
+
+// a 4x4 block of bytes at pitch p in shared memory, one 32-bit word a row
+__device__ __forceinline__ void load4x4_shared(const uint8_t* s, int p,
+                                               int* x) {
+#pragma unroll
+  for (int i = 0; i < 4; i++) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(s + i * p);
+#pragma unroll
+    for (int j = 0; j < 4; j++) x[4 * i + j] = (w >> (8 * j)) & 0xFF;
+  }
+}
+
+__device__ __forceinline__ void store4x4_shared(uint8_t* s, int p,
+                                                const int* x) {
+#pragma unroll
+  for (int i = 0; i < 4; i++)
+    *reinterpret_cast<uint32_t*>(s + i * p) =
+        static_cast<uint32_t>(x[4 * i]) | (x[4 * i + 1] << 8) |
+        (x[4 * i + 2] << 16) | (static_cast<uint32_t>(x[4 * i + 3]) << 24);
+}
+
+__device__ __forceinline__ uint32_t pack_i16(int a, int b) {
+  return (static_cast<uint32_t>(a) & 0xFFFFu) | (static_cast<uint32_t>(b) << 16);
+}
+
+// A block's levels in scan order as one 32-byte lv slot (two 16-byte
+// stores): SKIP leaves out the first scan position (DC-less blocks), the
+// tail zero-filled; the scan order is folded at compile time.
+template <bool SKIP>
+__device__ __forceinline__ void store_slot(uint4* slot, const int* acl) {
+  uint32_t w[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    const int p0 = 2 * k + SKIP, p1 = 2 * k + 1 + SKIP;
+    w[k] = pack_i16(acl[zz_raster(p0)], p1 < 16 ? acl[zz_raster(p1)] : 0);
+  }
+  slot[0] = make_uint4(w[0], w[1], w[2], w[3]);
+  slot[1] = make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Copy a rows x (PER pieces of T) rectangle between global memory (pitch
+// gp) and a shared stage (pitch sp, rows 16-byte aligned), by nt threads;
+// IN: global -> shared. PER 0: ``per`` pieces, known only at run time.
+template <typename T, int PER, bool IN>
+__device__ __forceinline__ void copy_rect(uint8_t* s, int sp, uint8_t* g,
+                                          int gp, int rows, int per, int tid,
+                                          int nt) {
+  const int n = PER ? PER : per;
+  for (int i = tid; i < rows * n; i += nt) {
+    const int y = i / n, k = i - y * n;
+    T* a = reinterpret_cast<T*>(s + y * sp) + k;
+    T* b = reinterpret_cast<T*>(g + static_cast<size_t>(y) * gp) + k;
+    if (IN) *a = *b; else *b = *a;
+  }
+}
+
+// A rows x bytes rectangle in the widest pieces (16, 8, 4 or 1 bytes) its
+// global start, pitch and width allow; FULL is a whole block's width,
+// which takes a division-free index (a narrower one, a row's last block,
+// takes 4- or 1-byte pieces).
+template <bool IN, int FULL>
+__device__ __forceinline__ void stage_rect(uint8_t* s, int sp,
+                                           const uint8_t* g_, int gp,
+                                           int rows, int bytes, int tid,
+                                           int nt) {
+  uint8_t* g = const_cast<uint8_t*>(g_);
+  const unsigned a = static_cast<unsigned>(reinterpret_cast<uintptr_t>(g)) |
+                     static_cast<unsigned>(gp) | static_cast<unsigned>(bytes);
+  if (bytes == FULL && (a & 15) == 0)
+    copy_rect<uint4, FULL / 16, IN>(s, sp, g, gp, rows, 0, tid, nt);
+  else if (bytes == FULL && (a & 7) == 0)
+    copy_rect<uint2, FULL / 8, IN>(s, sp, g, gp, rows, 0, tid, nt);
+  else if ((a & 3) == 0)
+    copy_rect<uint32_t, 0, IN>(s, sp, g, gp, rows, bytes / 4, tid, nt);
+  else
+    copy_rect<uint8_t, 0, IN>(s, sp, g, gp, rows, bytes, tid, nt);
+}

@@ -12,21 +12,27 @@
 //
 // Bound on the H100: I frames by the serial DC chain (the left-edge
 // dependency runs across the 120 MBs of a row, 68 rows in parallel), P
-// frames by bytes (cur + ref planes in, ref + levels out, ~15 MB at 1080p).
-// Design: one warp per macroblock, lanes 0..15 on the 16 luma 4x4 blocks,
-// lanes 16..23 on the 8 chroma blocks, the per-MB decisions (cbp, chroma DC
-// Hadamard) by warp ballots and shuffles. I frames: one block per MB row;
+// frames by bytes (cur + prediction planes in, reference + levels out,
+// ~15 MB at 1080p: 4.6 us).
+// I frames: one warp per macroblock, lanes 0..15 on the 16 luma 4x4
+// blocks, lanes 16..23 on the 8 chroma blocks, the per-MB decisions (cbp,
+// chroma DC Hadamard) by warp ballots and shuffles; one block per MB row;
 // the AC work (which does not depend on the DC prediction: the prediction
 // is constant per MB) runs in parallel over the row's MBs, only the DC /
 // edge chain walks the row on one warp (16 lanes luma DC, 8 lanes chroma
 // DC per MB step), then the recon runs in parallel again. The recon is
 // recomputed from the pixels rather than stored between phases. Recon
 // writes go straight into the reference planes for rows whose stripe is
-// sent. P frames predict from planes of their own (K5's output) when
-// motion is on, so a vector reaching into another MB never reads a pixel
-// that MB's recon has overwritten; with zero motion the prediction is the
-// reference plane itself, and each lane reads its own 4x4 before it
-// writes it, which no other lane touches.
+// sent.
+// P frames: a block of 4 MBs of one row, 96 threads (a thread a 4x4
+// block, luma and chroma in warps of their own, so no lane idles), the
+// pixels staged in shared memory with 16-byte loads, the levels, the
+// recon and the header slots leaving the block as whole contiguous runs
+// rather than as two-byte and byte stores spread over 24 sectors a warp
+// instruction. P frames predict from planes of their own (K5's output)
+// when motion is on; with zero motion the prediction is the reference
+// plane itself, which a block stages whole before it writes any recon,
+// and blocks own disjoint MBs.
 #include "h264_common.cuh"
 
 // ---------------------------------------------------------------- I frames
@@ -219,132 +225,292 @@ __global__ void mb_encode_i_kernel(const uint8_t* __restrict__ yp,
 // reads its luma QP and its chroma QP K_QPC[clip(qp, 0, 51)] once, so the
 // row-QP path is unchanged. The mb_qp_delta slot stays ue(0); K18 writes
 // the deltas.
-__global__ void mb_encode_p_kernel(const uint8_t* __restrict__ yp,
-                                   const uint8_t* __restrict__ up,
-                                   const uint8_t* __restrict__ vp,
-                                   const int* __restrict__ qp_rows,
-                                   const int* __restrict__ send_rows,
-                                   const uint8_t* pred_y,
-                                   const uint8_t* pred_u,
-                                   const uint8_t* pred_v,
-                                   const int* __restrict__ mv,
-                                   const int* __restrict__ qp_mb,
-                                   uint8_t* ref_y, uint8_t* ref_u,
-                                   uint8_t* ref_v, int16_t* __restrict__ lv,
-                                   int* __restrict__ cbp_out,
-                                   int* __restrict__ hdr_pay,
-                                   int* __restrict__ hdr_nb, int R, int M) {
-  const int lane = threadIdx.x & 31;
-  const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (g >= R * M) return;                      // whole warp leaves together
-  const int r = g / M, m = g % M;
-  const int W = M * 16, W2 = M * 8;
-  const int qp = qp_mb ? qp_mb[g] : qp_rows[r];
-  const int qpc = K_QPC[clampi(qp, 0, 51)];
-  const bool sent = send_rows[r] != 0;
-  const bool is_luma = lane < 16, is_chroma = lane >= 16 && lane < 24;
-  const int cl = lane - 16, c = is_chroma ? (lane - 16) >> 2 : 0,
-            q = (lane - 16) & 3;
-  int16_t* lv_mb = lv + static_cast<size_t>(g) * N_BLOCKS * 16;
-  const int mvx = mv ? mv[2 * g] : 0, mvy = mv ? mv[2 * g + 1] : 0;
+//
+// A block takes P_NB consecutive MBs of one row with 24 threads an MB:
+// two luma warps (16 threads an MB, one a 4x4 block) and one chroma warp
+// (8 threads an MB), so no lane idles and no warp diverges on the plane.
+// It stages the MBs' cur and prediction pixels in shared memory (16-byte
+// loads where the plane allows, 8 where a chroma row is not 16-byte
+// aligned: odd M), all of them before any recon is written, so a
+// prediction that is the reference itself is read whole first; levels
+// go into a shared stage as whole 32-byte slots and leave as the block's
+// contiguous run of 16-byte chunks; the recon replaces the cur stage and
+// leaves as 16-byte row pieces; the headers and cbp are written by one
+// thread a slot, contiguous over the block.
+#define P_NB 4                       // MBs a block, consecutive in one row
+#define P_LT (16 * P_NB)             // luma threads
+#define P_THREADS (24 * P_NB)        // and 8 chroma threads an MB
+#define P_LS (16 * P_NB + 16)        // luma stage pitch (bytes)
+#define P_CS (8 * P_NB + 16)         // chroma stage pitch
+#define P_SLOT_V4 (2 * N_BLOCKS)     // an MB's levels in 16-byte chunks
 
-  int x[16], pr[16], w[16], acl[16];
-  int r0 = 0, c0 = 0, stride = W, g8 = 0;
-  const uint8_t* cur = yp;
-  const uint8_t* pred = pred_y;
-  uint8_t* ref = ref_y;
-  if (is_luma) {
-    const int by = lane >> 2, bx = lane & 3;
-    r0 = 16 * r + 4 * by; c0 = 16 * m + 4 * bx;
-    g8 = (by >> 1) * 2 + (bx >> 1);
-  } else if (is_chroma) {
-    r0 = 8 * r + 4 * (q >> 1); c0 = 8 * m + 4 * (q & 1); stride = W2;
-    cur = c ? vp : up;
-    pred = c ? pred_v : pred_u;
-    ref = c ? ref_v : ref_u;
+struct PStage {
+  uint4 lv[P_NB * P_SLOT_V4];        // the block's levels, as stored
+  uint8_t cur_y[16 * P_LS];          // cur, then the recon
+  uint8_t pred_y[16 * P_LS];
+  uint8_t cur_c[2][8 * P_CS];
+  uint8_t pred_c[2][8 * P_CS];
+  int cbp_luma[P_NB], cbp_chroma[P_NB];
+};
+
+// A whole block's six planes into the stage in 16-byte pieces, every load
+// of a thread issued before its first store.
+__device__ __forceinline__ void stage_p(PStage& st, const uint8_t* yp,
+                                        const uint8_t* py, const uint8_t* up,
+                                        const uint8_t* vp, const uint8_t* pu,
+                                        const uint8_t* pv, size_t oy,
+                                        size_t oc, int W, int W2, int t) {
+  constexpr int NL = 16 * P_NB;                  // luma pieces a plane
+  constexpr int CPR = P_NB / 2;                  // chroma pieces a row
+  constexpr int NC = 8 * CPR;                    // chroma pieces a plane
+  constexpr int KL = (2 * NL + P_THREADS - 1) / P_THREADS;
+  constexpr int KC = (4 * NC + P_THREADS - 1) / P_THREADS;
+  uint4 l[KL], c[KC];
+#pragma unroll
+  for (int i = 0; i < KL; i++) {
+    const int j = t + i * P_THREADS, p = j / NL, y = (j % NL) / P_NB,
+              k = j % P_NB;
+    if (j < 2 * NL)
+      l[i] = *reinterpret_cast<const uint4*>((p ? py : yp) + oy +
+                                             static_cast<size_t>(y) * W +
+                                             16 * k);
   }
-  int lbits = 0;
-  bool nz_ac = false;
-  int w00 = 0;
-  if (is_luma || is_chroma) {
-    load4x4(cur, stride, r0, c0, x);
-    load4x4(pred, stride, r0, c0, pr);
+#pragma unroll
+  for (int i = 0; i < KC; i++) {
+    const int j = t + i * P_THREADS, p = j / NC, y = (j % NC) / CPR,
+              k = j % CPR;
+    const uint8_t* base = p == 0 ? up : p == 1 ? vp : p == 2 ? pu : pv;
+    if (j < 4 * NC)
+      c[i] = *reinterpret_cast<const uint4*>(base + oc +
+                                             static_cast<size_t>(y) * W2 +
+                                             16 * k);
+  }
+#pragma unroll
+  for (int i = 0; i < KL; i++) {
+    const int j = t + i * P_THREADS, p = j / NL, y = (j % NL) / P_NB,
+              k = j % P_NB;
+    if (j < 2 * NL)
+      *reinterpret_cast<uint4*>((p ? st.pred_y : st.cur_y) + y * P_LS +
+                                16 * k) = l[i];
+  }
+#pragma unroll
+  for (int i = 0; i < KC; i++) {
+    const int j = t + i * P_THREADS, p = j / NC, y = (j % NC) / CPR,
+              k = j % CPR;
+    uint8_t* base = p < 2 ? st.cur_c[p & 1] : st.pred_c[p & 1];
+    if (j < 4 * NC)
+      *reinterpret_cast<uint4*>(base + y * P_CS + 16 * k) = c[i];
+  }
+}
+
+// FAST: every block of the shape is whole (M a multiple of P_NB) and all
+// nine planes sit on 16-byte boundaries (the host checks), so the stage
+// moves in 16-byte pieces; otherwise each plane goes in the widest pieces
+// it allows (8 for chroma rows at odd M, 4 or 1 for a row's last block or
+// planes off those boundaries). The two are separate kernels so the
+// common one carries no code for the rare shapes: its instructions come
+// from device memory when the L2 is cold, and a bigger body cost a
+// one-stripe band step more than the kernel saved. 8 blocks an SM caps it
+// at 80 registers (left to itself ptxas took 64 and spilled).
+template <bool FAST>
+__global__ void __launch_bounds__(P_THREADS, 8)
+mb_encode_p_kernel(const uint8_t* __restrict__ yp,
+                   const uint8_t* __restrict__ up,
+                   const uint8_t* __restrict__ vp,
+                   const int* __restrict__ qp_rows,
+                   const int* __restrict__ send_rows, const uint8_t* pred_y,
+                   const uint8_t* pred_u, const uint8_t* pred_v,
+                   const int* __restrict__ mv, const int* __restrict__ qp_mb,
+                   uint8_t* ref_y, uint8_t* ref_u, uint8_t* ref_v,
+                   int16_t* __restrict__ lv, int* __restrict__ cbp_out,
+                   int* __restrict__ hdr_pay, int* __restrict__ hdr_nb,
+                   int M) {
+  __shared__ PStage st;
+  // the kernel before it has finished and its writes are visible: no read
+  // comes before this
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int t = threadIdx.x, lane = t & 31;
+  const int r = blockIdx.y, m0 = blockIdx.x * P_NB;
+  const int nb = M - m0 < P_NB ? M - m0 : P_NB;
+  const int W = 16 * M, W2 = 8 * M;
+  const int g0 = r * M + m0;
+  // every global read a thread makes is issued before the first barrier,
+  // so one memory latency, not a chain of them, precedes the transform:
+  // the MB's QP, the send gate, a header thread's vectors, the stage
+  const int mb = t < P_LT ? t >> 4 : (t - P_LT) >> 3;
+  const int qp = qp_mb ? qp_mb[g0 + (mb < nb ? mb : 0)] : qp_rows[r];
+  const bool sent = send_rows[r] != 0;
+  const int hmb = t / HDR_SLOTS;                 // a header thread's MB
+  int mvx = 0, mvy = 0, lx = 0, ly = 0;
+  if (mv && hmb < nb) {
+    const int g = g0 + hmb;
+    mvx = mv[2 * g];
+    mvy = mv[2 * g + 1];
+    if (m0 + hmb > 0) {                        // the left neighbour's
+      lx = mv[2 * g - 2];
+      ly = mv[2 * g - 1];
+    }
+  }
+
+  const size_t oy = static_cast<size_t>(16 * r) * W + 16 * m0;
+  const size_t oc = static_cast<size_t>(8 * r) * W2 + 8 * m0;
+  if constexpr (FAST) {
+    stage_p(st, yp, pred_y, up, vp, pred_u, pred_v, oy, oc, W, W2, t);
+  } else {
+    stage_rect<true, 16 * P_NB>(st.cur_y, P_LS, yp + oy, W, 16, 16 * nb, t,
+                                P_THREADS);
+    stage_rect<true, 16 * P_NB>(st.pred_y, P_LS, pred_y + oy, W, 16,
+                                16 * nb, t, P_THREADS);
+    stage_rect<true, 8 * P_NB>(st.cur_c[0], P_CS, up + oc, W2, 8, 8 * nb, t,
+                               P_THREADS);
+    stage_rect<true, 8 * P_NB>(st.cur_c[1], P_CS, vp + oc, W2, 8, 8 * nb, t,
+                               P_THREADS);
+    stage_rect<true, 8 * P_NB>(st.pred_c[0], P_CS, pred_u + oc, W2, 8,
+                               8 * nb, t, P_THREADS);
+    stage_rect<true, 8 * P_NB>(st.pred_c[1], P_CS, pred_v + oc, W2, 8,
+                               8 * nb, t, P_THREADS);
+  }
+  __syncthreads();
+
+  int x[16], pr[16], w[16], acl[16], d[16], inv[16];
+  if (t < P_LT) {
+    // ---- luma: thread b of MB mb codes 4x4 block b (raster)
+    const int b = t & 15, by = b >> 2, bx = b & 3;
+    const QuantP q = quant_p_consts(qp, 6);
+    uint8_t* sc = st.cur_y + 4 * by * P_LS + 16 * mb + 4 * bx;
+    load4x4_shared(sc, P_LS, x);
+    load4x4_shared(st.pred_y + (sc - st.cur_y), P_LS, pr);
+#pragma unroll
     for (int k = 0; k < 16; k++) x[k] -= pr[k];
     fwd4(x, w);
-    const int qq = is_luma ? qp : qpc;
-    for (int k = 0; k < 16; k++) acl[k] = quant_ac(w[k], qq, K_POS_CLS[k], 6);
-    if (is_luma) {
-      store_scan(lv_mb + (1 + K_CODING_OF_RASTER[lane]) * 16, acl, 0);
-      lbits = any_nz(acl) ? (1 << g8) : 0;
-    } else {
-      acl[0] = 0;
-      store_scan(lv_mb + (19 + cl) * 16, acl, 1);
-      nz_ac = any_nz(acl);
-      w00 = w[0];
+#pragma unroll
+    for (int k = 0; k < 16; k++)
+      acl[k] = quant_p(w[k], q.mf[pos_cls(k)], q.f, q.qbits);
+    // the MB's 16 blocks are one half-warp: cbp's four 8x8 group bits
+    const unsigned m16 =
+        (__ballot_sync(0xffffffffu, any_nz(acl)) >> (lane & 16)) & 0xFFFFu;
+    const int cbp_luma = ((m16 & 0x0033u) ? 1 : 0) | ((m16 & 0x00CCu) ? 2 : 0) |
+                         ((m16 & 0x3300u) ? 4 : 0) | ((m16 & 0xCC00u) ? 8 : 0);
+    uint4* slots = st.lv + mb * P_SLOT_V4;
+    store_slot<false>(slots + 2 * (1 + coding_of_raster(b)), acl);
+    if (b < 2) slots[b] = make_uint4(0, 0, 0, 0);   // the luma-DC slot
+    if (b == 0) st.cbp_luma[mb] = cbp_luma;
+    if (sent) {
+      // a group's blocks are dequantized when its cbp bit is set (which
+      // makes the MB coded)
+      const bool on = (cbp_luma >> ((by >> 1) * 2 + (bx >> 1))) & 1;
+#pragma unroll
+      for (int k = 0; k < 16; k++)
+        d[k] = dequant_p(on ? acl[k] : 0, q.ls[pos_cls(k)], q.dadd, q.dsh);
+      inv4(d, inv);
+#pragma unroll
+      for (int k = 0; k < 16; k++) x[k] = clip1(pr[k] + ((inv[k] + 32) >> 6));
+      store4x4_shared(sc, P_LS, x);
     }
   } else {
-    // lanes 24..31 zero the unused luma-DC block (2 positions each)
-    lv_mb[2 * (lane - 24)] = 0;
-    lv_mb[2 * (lane - 24) + 1] = 0;
-  }
-  const int cbp_luma = __reduce_or_sync(0xffffffffu, lbits);
-  // chroma DC: 2x2 Hadamard of the component's four W00 terms
-  int dcw[4];
-  for (int k = 0; k < 4; k++)
-    dcw[k] = __shfl_sync(0xffffffffu, w00, 16 + c * 4 + k);
-  const int A = dcw[0] + dcw[1], B = dcw[0] - dcw[1], C = dcw[2] + dcw[3],
-            D = dcw[2] - dcw[3];
-  const int hd2[4] = {A + C, B + D, A - C, B - D};
-  int clv[4];
-  for (int k = 0; k < 4; k++) clv[k] = quant_dc(hd2[k], qpc);
-  const bool cdc_nz = is_chroma && (clv[0] | clv[1] | clv[2] | clv[3]) != 0;
-  const bool has_cac = __ballot_sync(0xffffffffu, is_chroma && nz_ac) != 0;
-  const bool has_cdc = __ballot_sync(0xffffffffu, cdc_nz) != 0;
-  const int cbp_chroma = has_cac ? 2 : (has_cdc ? 1 : 0);
-  const int cbp = cbp_luma | (cbp_chroma << 4);
-  const bool coded = cbp != 0 || mvx != 0 || mvy != 0;
-
-  if (is_chroma) {
-    int16_t* slot = lv_mb + (17 + c) * 16;
-    slot[q] = static_cast<int16_t>(clv[q]);
-    for (int k = 0; k < 3; k++) slot[4 + 3 * q + k] = 0;
-  }
-  if (sent && (is_luma || is_chroma)) {
-    int d[16], inv[16];
-    if (is_luma) {
-      const bool on = ((cbp_luma >> g8) & 1) && coded;
-      for (int k = 0; k < 16; k++)
-        d[k] = dequant_ac(on ? acl[k] : 0, qp, K_POS_CLS[k]);
-    } else {
+    // ---- chroma: thread (c, q4) of MB mb codes block q4 of component c
+    const int cl = lane & 7, c = cl >> 2, q4 = cl & 3;
+    const int qpc = K_QPC[clampi(qp, 0, 51)];
+    const QuantP q = quant_p_consts(qpc, 6);
+    uint8_t* sc = st.cur_c[c] + 4 * (q4 >> 1) * P_CS + 8 * mb + 4 * (q4 & 1);
+    load4x4_shared(sc, P_CS, x);
+    load4x4_shared(st.pred_c[c] + (sc - st.cur_c[c]), P_CS, pr);
+#pragma unroll
+    for (int k = 0; k < 16; k++) x[k] -= pr[k];
+    fwd4(x, w);
+    acl[0] = 0;
+#pragma unroll
+    for (int k = 1; k < 16; k++)
+      acl[k] = quant_p(w[k], q.mf[pos_cls(k)], q.f, q.qbits);
+    // chroma DC: 2x2 Hadamard of the component's four W00 terms
+    int dcw[4];
+#pragma unroll
+    for (int k = 0; k < 4; k++)
+      dcw[k] = __shfl_sync(0xffffffffu, w[0], (lane & ~3) + k);
+    const int A = dcw[0] + dcw[1], B = dcw[0] - dcw[1], C = dcw[2] + dcw[3],
+              D = dcw[2] - dcw[3];
+    const int hd2[4] = {A + C, B + D, A - C, B - D};
+    const int f2 = 2 * ((1 << q.qbits) / 3);
+    int clv[4];
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      const int y = hd2[k];
+      const int mag = ((y < 0 ? -y : y) * q.mf[0] + f2) >> (q.qbits + 1);
+      clv[k] = clampi(y < 0 ? -mag : mag, -LEVEL_CLAMP, LEVEL_CLAMP);
+    }
+    const bool cdc_nz = (clv[0] | clv[1] | clv[2] | clv[3]) != 0;
+    const unsigned cac8 = __ballot_sync(0xffffffffu, any_nz(acl)) >> (lane & 24);
+    const unsigned cdc8 = __ballot_sync(0xffffffffu, cdc_nz) >> (lane & 24);
+    const int cbp_chroma = (cac8 & 0xFFu) ? 2 : ((cdc8 & 0xFFu) ? 1 : 0);
+    uint4* slots = st.lv + mb * P_SLOT_V4;
+    store_slot<true>(slots + 2 * (19 + cl), acl);
+    // the component's DC slot: its four levels, then zeros, 8 bytes a
+    // thread
+    reinterpret_cast<uint2*>(slots + 2 * (17 + c))[q4] =
+        q4 ? make_uint2(0, 0)
+           : make_uint2(pack_i16(clv[0], clv[1]), pack_i16(clv[2], clv[3]));
+    if (cl == 0) st.cbp_chroma[mb] = cbp_chroma;
+    if (sent) {
       const int A2 = clv[0] + clv[1], B2 = clv[0] - clv[1],
                 C2 = clv[2] + clv[3], D2 = clv[2] - clv[3];
-      const int f2[4] = {A2 + C2, B2 + D2, A2 - C2, B2 - D2};
+      const int f4[4] = {A2 + C2, B2 + D2, A2 - C2, B2 - D2};
+      const int ls00 = 16 * K_V[(qpc % 6) * 3];
+      d[0] = cbp_chroma >= 1 ? (f4[q4] * ls00 * (1 << (qpc / 6))) >> 5 : 0;
       const bool gate_ac = cbp_chroma == 2;
+#pragma unroll
       for (int k = 1; k < 16; k++)
-        d[k] = dequant_ac(gate_ac ? acl[k] : 0, qpc, K_POS_CLS[k]);
-      d[0] = cbp_chroma >= 1 ? dequant_cdc(f2[q], qpc) : 0;
+        d[k] = dequant_p(gate_ac ? acl[k] : 0, q.ls[pos_cls(k)], q.dadd,
+                         q.dsh);
+      inv4(d, inv);
+#pragma unroll
+      for (int k = 0; k < 16; k++) x[k] = clip1(pr[k] + ((inv[k] + 32) >> 6));
+      store4x4_shared(sc, P_CS, x);
     }
-    inv4(d, inv);
-    int rec[16];
-    for (int k = 0; k < 16; k++) rec[k] = clip1(pr[k] + ((inv[k] + 32) >> 6));
-    store4x4(ref, stride, r0, c0, rec);
   }
-  if (lane == 24) {
-    cbp_out[g] = cbp;
-    int* hp = hdr_pay + static_cast<size_t>(g) * HDR_SLOTS;
-    int* hn = hdr_nb + static_cast<size_t>(g) * HDR_SLOTS;
-    hp[0] = 0; hn[0] = 0;                      // skip run: the packer's
-    for (int k = 1; k < HDR_SLOTS; k++) { hp[k] = 0; hn[k] = 0; }
-    if (coded) {
-      // MV predictor = left neighbour (one slice per MB row, §8.4.1.3)
-      const int lx = (m > 0 && mv) ? mv[2 * g - 2] : 0;
-      const int ly = (m > 0 && mv) ? mv[2 * g - 1] : 0;
-      hp[1] = 1; hn[1] = 1;                    // mb_type P_L0_16x16
-      se_event(mvx - lx, &hp[2], &hn[2]);
-      se_event(mvy - ly, &hp[3], &hn[3]);
-      ue_event(K_CBP2CODE[cbp], &hp[4], &hn[4]);
-      if (cbp != 0) { hp[5] = 1; hn[5] = 1; }  // mb_qp_delta ue(0)
+  __syncthreads();
+
+  // ---- the block's MBs are contiguous in lv, cbp and the header slots
+  const uint4* src = st.lv;
+  uint4* dst = reinterpret_cast<uint4*>(lv) + static_cast<size_t>(g0) * P_SLOT_V4;
+  for (int i = t; i < nb * P_SLOT_V4; i += P_THREADS) dst[i] = src[i];
+  if (sent) {
+    if constexpr (FAST) {
+      copy_rect<uint4, P_NB, false>(st.cur_y, P_LS, ref_y + oy, W, 16, 0, t,
+                                    P_THREADS);
+      copy_rect<uint4, P_NB / 2, false>(st.cur_c[0], P_CS, ref_u + oc, W2, 8,
+                                        0, t, P_THREADS);
+      copy_rect<uint4, P_NB / 2, false>(st.cur_c[1], P_CS, ref_v + oc, W2, 8,
+                                        0, t, P_THREADS);
+    } else {
+      stage_rect<false, 16 * P_NB>(st.cur_y, P_LS, ref_y + oy, W, 16,
+                                   16 * nb, t, P_THREADS);
+      stage_rect<false, 8 * P_NB>(st.cur_c[0], P_CS, ref_u + oc, W2, 8,
+                                  8 * nb, t, P_THREADS);
+      stage_rect<false, 8 * P_NB>(st.cur_c[1], P_CS, ref_v + oc, W2, 8,
+                                  8 * nb, t, P_THREADS);
     }
+  }
+  if (hmb < nb) {
+    const int k = t - hmb * HDR_SLOTS, g = g0 + hmb;
+    const int cbp = st.cbp_luma[hmb] | (st.cbp_chroma[hmb] << 4);
+    int p = 0, n = 0;                          // skip run: the packer's
+    if (cbp != 0 || mvx != 0 || mvy != 0) {    // coded
+      // MV predictor = left neighbour (one slice per MB row, §8.4.1.3)
+      if (k == 1) {
+        p = 1; n = 1;                          // mb_type P_L0_16x16
+      } else if (k == 2) {
+        se_event(mvx - lx, &p, &n);
+      } else if (k == 3) {
+        se_event(mvy - ly, &p, &n);
+      } else if (k == 4) {
+        ue_event(K_CBP2CODE[cbp], &p, &n);
+      } else if (k == 5 && cbp != 0) {
+        p = 1; n = 1;                          // mb_qp_delta ue(0)
+      }
+    }
+    hdr_pay[static_cast<size_t>(g) * HDR_SLOTS + k] = p;
+    hdr_nb[static_cast<size_t>(g) * HDR_SLOTS + k] = n;
+    if (k == 0) cbp_out[g] = cbp;
   }
 }
 
@@ -364,18 +530,38 @@ extern "C" int mb_encode_i(const uint8_t* y, const uint8_t* u,
   return static_cast<int>(cudaGetLastError());
 }
 
+// every pointer on a 16-byte boundary
+template <typename... P>
+static bool aligned(P... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
+}
+
 static int launch_p(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                     const int* qp, const int* send_rows, const uint8_t* pred_y,
                     const uint8_t* pred_u, const uint8_t* pred_v,
                     const int* mv, const int* qp_mb, uint8_t* ref_y,
                     uint8_t* ref_u, uint8_t* ref_v, int16_t* lv, int* cbp,
                     int* hdr_pay, int* hdr_nb, int R, int M, void* stream) {
-  const int per_block = 4;                     // one warp per MB
-  const int blocks = (R * M + per_block - 1) / per_block;
-  mb_encode_p_kernel<<<blocks, 32 * per_block, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, qp_mb, ref_y, ref_u,
-      ref_v, lv, cbp, hdr_pay, hdr_nb, R, M);
+  if (R <= 0 || M <= 0 || R > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // launched behind the kernel before it (programmatic dependent launch:
+  // K5 on the band path, K1 with zero motion), which it waits for inside
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + P_NB - 1) / P_NB, R);
+  cfg.blockDim = dim3(P_THREADS);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool fast = M % P_NB == 0 && aligned(y, u, v, pred_y, pred_u, pred_v,
+                                            ref_y, ref_u, ref_v);
+  cudaLaunchKernelEx(&cfg,
+                     fast ? mb_encode_p_kernel<true>
+                          : mb_encode_p_kernel<false>,
+                     y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv,
+                     qp_mb, ref_y, ref_u, ref_v, lv, cbp, hdr_pay, hdr_nb, M);
   return static_cast<int>(cudaGetLastError());
 }
 

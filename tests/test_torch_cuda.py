@@ -36,8 +36,14 @@ and 63 MBs at 4 and 2 MBs a block, row groups of 4 and 5 MB rows, W =
 and 128 candidates with |dy| and |dx| up to 64, a flat frame where the
 lambda and then the lowest index decide, an exact tie between (3, 0) and
 (-3, 0), per-row qp at 0, 51 and out of range, and a misaligned plane,
-which is refused) and must match it exactly, overflow flags included.
-Tolerance: 0.
+which is refused; for K2-P 13 MBs a row (odd, so chroma rows start off
+16-byte boundaries, and not a multiple of its 4 MBs a block), bands as
+views from a stripe boundary, send gates that cut across the stripes,
+the prediction aliasing the reference and separate prediction planes
+with vectors, planes 4 and 1 bytes into their storage, and per-MB QPs
+0 and 51 inside one block; for K10 widths whose rows are not multiples
+of 16 bytes at H <= 96, rows that are, and 3 seats of an odd frame) and
+must match it exactly, overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -105,37 +111,95 @@ def test_csc420_damage(dev, geom):
           list(HP.csc420_damage_plain(f1, pp, H // sh)) + [pp])
 
 
-def _p_call(p_fn, planes, qp, send, rps, ref, cands):
+def _p_call(p_fn, planes, qp, send, rps, ref, cands, send_rows=None,
+            rows=None):
     """K2-P (kernel or plain) with the prediction of K5 (zero motion: the
-    reference planes themselves, updated in place)."""
-    send_rows = send.repeat_interleave(rps)
+    reference planes themselves, updated in place). ``send_rows``
+    overrides the stripes' gate row by row; ``rows`` (a slice of MB rows)
+    codes that band only, every plane, the prediction and the reference
+    handed over as views, as the band step does."""
+    if send_rows is None:
+        send_rows = send.repeat_interleave(rps)
     if cands is None:
-        return p_fn(*planes, qp, send_rows, *ref, None, *ref)
-    *pred, mv = TE.motion_select_plain(planes[0], *ref, qp, cands, 16 * rps)
+        pred, mv = ref, None
+    else:
+        *pred, mv = TE.motion_select_plain(planes[0], *ref, qp, cands,
+                                           16 * rps)
+    if rows is not None:
+        def band(ts):
+            return [t[16 * rows.start // c:16 * rows.stop // c]
+                    for t, c in zip(ts, (1, 2, 2))]
+        planes, pred, ref = band(planes), band(pred), band(ref)
+        qp, send_rows = qp[rows], send_rows[rows]
+        mv = None if mv is None else mv[rows]
     return p_fn(*planes, qp, send_rows, *pred, mv, *ref)
 
 
-@pytest.mark.parametrize("geom", GEOMS)
-@pytest.mark.parametrize("mode", ["i", "p0", "p"])
+#: K2-P also at 13 MBs a row: odd (chroma rows off 16-byte boundaries)
+#: and not a multiple of the 4 MBs a block takes; and at 8, a multiple,
+#: which takes its kernel for whole blocks on 16-byte boundaries
+P_GEOMS = GEOMS + [(64, 208, 32), (64, 128, 32)]
+
+
+@pytest.mark.parametrize("geom", P_GEOMS)
+@pytest.mark.parametrize("mode", ["i", "p0", "p", "p0_rows", "p_rows",
+                                  "p0_band", "p_band"])
 def test_mb_encode(dev, geom, mode):
+    """K2 against plain: I, P with zero motion (the prediction is the
+    reference, rewritten in place) and with K5's prediction; ``_rows``
+    sends MB rows in a pattern that cuts across the stripes, ``_band``
+    codes the MB rows of the second stripe on (views from a stripe
+    boundary)."""
     S, rps, planes, qp, send, ref, _ = _stage(dev, *geom)
     if mode == "i":
         base = [torch.zeros_like(p) for p in planes]
     else:
         base = [p.clone() for p in ref]
-        planes = tuple(255 - p for p in planes) if mode == "p0" else tuple(
-            torch.roll(p, (-2, 1), (0, 1)) for p in planes)
+        planes = tuple(255 - p for p in planes) if mode.startswith("p0") \
+            else tuple(torch.roll(p, (-2, 1), (0, 1)) for p in planes)
     kref = [b.clone() for b in base]
     pref = [b.clone() for b in base]
     if mode == "i":
         ko = HP.mb_encode_i(*planes, qp, send, rps, *kref)
         po = HP.mb_encode_i_plain(*planes, qp, send, rps, *pref)
     else:
-        cands = None if mode == "p0" else TE.scroll_candidates(4, 2)
-        ko = _p_call(HP.mb_encode_p, planes, qp, send, rps, kref, cands)
+        cands = None if mode.startswith("p0") else TE.scroll_candidates(4, 2)
+        R = geom[0] // 16
+        kw = {}
+        if mode.endswith("_rows"):
+            kw["send_rows"] = torch.tensor([1, 0, 0, 1, 1, 0][:R] * 2,
+                                           dtype=torch.int32,
+                                           device=dev)[:R]
+        if mode.endswith("_band"):
+            kw["rows"] = slice(rps if S > 1 else 0, R)
+        ko = _p_call(HP.mb_encode_p, planes, qp, send, rps, kref, cands,
+                     **kw)
         po = _p_call(HP.mb_encode_p_plain, planes, qp, send, rps, pref,
-                     cands)
+                     cands, **kw)
     _same(list(ko) + kref, list(po) + pref)
+
+
+@pytest.mark.parametrize("offset", [4, 1])
+@pytest.mark.parametrize("motion", [False, True])
+def test_mb_encode_p_on_unaligned_planes(dev, offset, motion):
+    """K2-P on planes that start ``offset`` bytes into their storage (a
+    4-byte and a byte-aligned view: the block's narrower staging pieces),
+    at 13 MBs a row, equal to plain."""
+    H, W, sh = 64, 208, 32
+    S, rps, planes, qp, send, ref, _ = _stage(dev, H, W, sh)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 16, dtype=torch.uint8, device=dev)
+        v = buf[offset:offset + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+    cur = [shifted(torch.roll(p, (-2, 1), (0, 1))) for p in planes]
+    cands = TE.scroll_candidates(4, 2) if motion else None
+    outs = []
+    for fn in (HP.mb_encode_p, HP.mb_encode_p_plain):
+        r = [shifted(p) for p in ref]
+        outs.append(list(_p_call(fn, cur, qp, send, rps, r, cands)) + r)
+    _same(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("geom", GEOMS)
@@ -216,11 +280,13 @@ def test_cavlc_and_pack(dev, geom):
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_chain_on_noise_at_random_qp(dev, seed):
+@pytest.mark.parametrize("W", [96, 208])
+def test_chain_on_noise_at_random_qp(dev, seed, W):
     """Noise frames at per-row qp drawn from 0..51 (level escapes, large
     nC, long runs), I then P: every stage's kernel output equals the
-    plain version's on the same inputs."""
-    H, W, sh = 64, 96, 32
+    plain version's on the same inputs; also at 13 MBs a row (odd, not a
+    multiple of K2-P's 4 MBs a block)."""
+    H, sh = 64, 32
     S, rps, R, M = H // sh, sh // 16, H // 16, W // 16
     rng = np.random.default_rng(100 + seed)
     f0, f1 = (torch.as_tensor(rng.integers(0, 256, (H, W, 3),
@@ -389,9 +455,15 @@ def test_jpeg_session_on_the_card(dev):
 
 # ------------------------------------------------- the engine loop: K10-K12
 
-#: (height, width): the 1080p capture and the grid, and odd sizes whose
-#: byte counts are not multiples of 4 (the kernels' ragged tails)
-FRAME_GEOMS = [(1080, 1920), (1088, 1920), (37, 53), (5, 7)]
+#: (height, width): the 1080p capture and the grid, odd sizes whose byte
+#: counts are not multiples of 4 (the kernels' ragged tails), widths
+#: whose rows (3W bytes) are not multiples of 16 with H <= 96 (the block's
+#: bounce period at its floor of 1), so K10's rows start off 16-byte
+#: boundaries in every channel phase, and rows that are multiples of 16
+#: bytes (K10's aligned path) with a height that is not a multiple of its
+#: 8 rows a block, narrower than the block's columns or ending inside them
+FRAME_GEOMS = [(1080, 1920), (1088, 1920), (37, 53), (5, 7), (96, 1366),
+               (90, 250), (100, 208), (45, 16)]
 
 
 @pytest.mark.parametrize("geom", FRAME_GEOMS)
@@ -780,10 +852,11 @@ def test_jpeg_pack_seats(dev, geom, n_seats):
 
 
 @pytest.mark.parametrize("geom", FRAME_GEOMS)
-@pytest.mark.parametrize("n_seats", [1, 4])
+@pytest.mark.parametrize("n_seats", [1, 3, 4])
 @pytest.mark.parametrize("tick", [0, 95, 2**31 - 100])
 def test_synthetic_frames(dev, geom, n_seats, tick):
-    """K10's seat entry: seat k at phase k * 37 + tick, wrapping int32."""
+    """K10's seat entry: seat k at phase k * 37 + tick, wrapping int32; at
+    an odd frame size the later seats start off 16-byte boundaries."""
     from selkies_tpu_torch.ops import frames as FR
     H, W = geom
     _same([FR.synthetic_frames(H, W, n_seats, tick, dev)],
@@ -886,10 +959,12 @@ def _qp_planes(dev, rng, R, M):
 
 
 @pytest.mark.parametrize("motion", [False, True])
-def test_mb_encode_p_with_qp_mb_at_1080p(dev, motion):
+@pytest.mark.parametrize("W", [1920, 208])
+def test_mb_encode_p_with_qp_mb_at_1080p(dev, motion, W):
     """K2-P's per-MB-QP entry on noise against a moved reference, QPs
-    0..51 per MB, half the rows sent; then K18 on its headers."""
-    H, W = 1088, 1920
+    0..51 per MB (the first block of each row holds 0, 51, 0, 51), half
+    the rows sent; then K18 on its headers. Also 1088 rows of 13 MBs."""
+    H = 1088
     R, M = H // 16, W // 16
     rng = np.random.default_rng(7 + motion)
     f0, f1 = (torch.as_tensor(rng.integers(0, 256, (H, W, 3),
@@ -899,6 +974,8 @@ def test_mb_encode_p_with_qp_mb_at_1080p(dev, motion):
     ref = list(HP.csc420_damage_plain(f0, f0.clone(), 17)[:3])
     planes = HP.csc420_damage_plain(f1, f0.clone(), 17)[:3]
     qp, qp_mb = _qp_planes(dev, rng, R, M)
+    qp_mb[:, :4] = torch.tensor([0, 51, 0, 51], dtype=torch.int32,
+                                device=dev)
     send = (torch.arange(R, device=dev) % 2).to(torch.int32)
     if motion:
         *pred, mv = TE.motion_select_plain(planes[0], *ref, qp,
