@@ -96,12 +96,17 @@ entry at 4 shards; K2-P through both entries at 1080p, with zero motion
 16 rows (views at a stripe boundary, each equal to the plain version,
 reference planes included); K10 at 1080p and its seat entry at 1, 2, 4
 and 8 seats, each seat count beside a ``fill_`` of the same bytes (the
-card's write rate under the same protocol, a yardstick) (the "K3 / K4 /
-K16 / K5 / K19 / K2-P / K10 timing points" line).
+card's write rate under the same protocol, a yardstick); K9 at 1080p at
+the stock and twice the stock caps and its seat entry at 1, 2, 4 and 8
+seats; K15 at 1080p, with zero motion and on 4:4:4 bands of 4 and 16
+rows (views at a stripe boundary, each equal to the plain version,
+reference planes included) (the "K3 / K4 / K16 / K5 / K19 / K2-P / K10
+/ K9 / K15 timing points" line).
 The main path's three step shapes (stock I, full-frame P band,
 one-stripe P band) are timed on the device between CUDA events, the
 host's enqueue hidden behind a spin kernel, for the default session
-and for the fullcolor default session (the two "step device times"
+and for the fullcolor default session, and the JPEG step (K6-K9) on a
+full 1080p frame and an idle one (the three "step device times"
 lines). Exits non-zero on any mismatch, launch error or kernel a path
 did not launch; the last line is the device record. Needs no network and
 one card.
@@ -604,14 +609,22 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def k9_bytes(nbits, outs) -> int:
+    """The bytes K9 must move on these inputs: all of nbits, only the
+    16-byte payload pieces (4 slots) that hold an event, and its
+    outputs."""
+    pieces = int((nbits.reshape(-1, 4) != 0).any(dim=1).sum())
+    return nbytes(nbits, *outs) + 16 * pieces
+
+
 def bound_ms(by: int, ops: int) -> float:
     """The least time the card could take: bytes over the memory rate or
     operations over the fp32 rate, whichever is larger (ms)."""
     return max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
 
 
-#: K3 / K4 / K16 / K5 / K19 / K2-P / K10 timing points beyond the
-#: kernels line:
+#: K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 timing points beyond
+#: the kernels line:
 #: shape -> record
 POINTS: dict = {}
 
@@ -643,16 +656,21 @@ def motion_points(name: str, kern, plain, cur, ref, qp, cands, win: int,
 
 
 def p_coder_points(planes, qp, send_rows, pred, mv, i_ref, rps: int,
-                   flush) -> None:
-    """K2-P's row-QP entry on the 1080p P inputs with zero motion (mv
-    null, the prediction the reference planes themselves, as the stock
-    step runs it), then on bands of ``rps`` and ``4 * rps`` MB rows (views
-    at a stripe boundary of the planes, the prediction and the reference,
-    as the band step hands them over), each equal to the plain version
-    (tolerance 0, the whole reference planes included), timed as timing
-    points. The reference is restored, untimed, before each call."""
+                   flush, name: str = "mb_encode_p", kern=HP.mb_encode_p,
+                   plain=HP.mb_encode_p_plain, cdiv: int = 2,
+                   blocks: int = 24) -> None:
+    """A P coder (K2-P's row-QP entry; K15 with ``cdiv`` 1, its chroma
+    planes at full resolution, and 48 blocks an MB) on the 1080p P inputs
+    with zero motion (mv null, the prediction the reference planes
+    themselves, as the stock step runs it), then on bands of ``rps`` and
+    ``4 * rps`` MB rows (views at a stripe boundary of the planes, the
+    prediction and the reference, as the band step hands them over), each
+    equal to the plain version (tolerance 0, the whole reference planes
+    included), timed as timing points. The reference is restored,
+    untimed, before each call."""
     R, M = qp.shape[0], planes[0].shape[1] // 16
-    ops = 1200 * 24 * M
+    ops = 1200 * blocks * M
+    divs = (1, cdiv, cdiv)
 
     def rows(t, r0, n, c):
         return t.narrow(0, 16 * r0 // c, 16 * n // c)
@@ -661,33 +679,33 @@ def p_coder_points(planes, qp, send_rows, pred, mv, i_ref, rps: int,
                                    for n in (rps, 4 * rps)]
     for tag, b0, n in cases:
         def args(work, b0=b0, n=n, tag=tag):
-            bp = [rows(t, b0, n, c) for t, c in zip(planes, (1, 2, 2))]
-            bref = [rows(t, b0, n, c) for t, c in zip(work, (1, 2, 2))]
+            bp = [rows(t, b0, n, c) for t, c in zip(planes, divs)]
+            bref = [rows(t, b0, n, c) for t, c in zip(work, divs)]
             if tag == "zero-mv":
                 return (*bp, qp, send_rows, *bref, None, *bref)
-            bpred = [rows(t, b0, n, c) for t, c in zip(pred, (1, 2, 2))]
+            bpred = [rows(t, b0, n, c) for t, c in zip(pred, divs)]
             return (*bp, qp.narrow(0, b0, n), send_rows.narrow(0, b0, n),
                     *bpred, mv.narrow(0, b0, n), *bref)
         outs = []
-        for fn in (HP.mb_encode_p, HP.mb_encode_p_plain):
+        for fn in (kern, plain):
             work = [t.clone() for t in i_ref]
             outs.append(list(fn(*args(work))) + work)
         err = max_abs_err(outs[0], outs[1])
-        check(err == 0, f"mb_encode_p ({tag}) differs from plain (err {err})")
+        check(err == 0, f"{name} ({tag}) differs from plain (err {err})")
         work = [t.clone() for t in i_ref]
         a = args(work)
 
         def restore():
             for w, b in zip(work, i_ref):
                 w.copy_(b)
-        ms = time_fn(lambda: HP.mb_encode_p(*a), 20, restore=restore,
+        ms = time_fn(lambda: kern(*a), 20, restore=restore,
                      flush=flush, hide_launch=True)
         frac = float(send_rows.narrow(0, b0, n).float().mean())
         # inputs (the prediction read once, also where it is the
         # reference) and outputs once, the reference written where sent
         by = nbytes(*(t for t in a[:9] if t is not None),
                     *outs[0][:4]) + int(nbytes(*a[9:]) * frac)
-        point(f"mb_encode_p {'1080p ' if tag == 'zero-mv' else ''}{tag}",
+        point(f"{name} {'1080p ' if tag == 'zero-mv' else ''}{tag}",
               ms, by, ops * n)
 
 
@@ -1085,6 +1103,10 @@ def kernel444_checks(frames, sess, grown) -> dict:
     by = nbytes(*p_planes, qp, send_rows, *pred, mv, *ko) + int(
         nbytes(*kref) * sent_frac)
     out["mb_encode_p444"] = (err, ms, pms, by, 1200 * 48 * R * M, None)
+    point("mb_encode_p444 1080p", ms, by, 1200 * 48 * R * M, pms)
+    p_coder_points(p_planes, qp, send_rows, pred, mv, i_ref, rps, flush,
+                   name="mb_encode_p444", kern=H4.mb_encode_p444,
+                   plain=H4.mb_encode_p444_plain, cdiv=1, blocks=48)
 
     # K16 and K4 on the K14 / K15 outputs
     for intra, (lv, cbp, hp, hn) in ((True, i_out), (False, p_out)):
@@ -1395,6 +1417,36 @@ def step_device_times(dsettings, base, scroll, typed, reps: int = 7
     return res
 
 
+def jpeg_step_device_times(settings, cases: dict, reps: int = 7) -> dict:
+    """Device time (ms between CUDA events, median of ``reps``) of the
+    JPEG step (K6-K9) at 1080p on each (frame, prev) case, at the stock
+    caps, ``prev`` and the stripe ages restored and L2 flushed before
+    each rep, the host's enqueue hidden behind a spin kernel as in
+    :func:`step_device_times` (its enqueue time returned beside it)."""
+    sess = JpegEncoderSession(settings)
+    l2 = torch.empty(64 << 20, dtype=torch.uint8, device=sess.device)
+    age0 = sess._age.clone()
+    res = {}
+    for name, (frame, prev) in cases.items():
+        def restore(prev=prev):
+            sess._prev.copy_(prev)
+            sess._age.copy_(age0)
+
+        def fn(frame=frame):
+            return sess._step(frame, sess._prev, sess._age, sess._qtab)
+        restore()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        ms = time_fn(fn, reps, restore=restore,
+                     flush=lambda: flush_l2(l2), hide_launch=True,
+                     spin=20_000_000)
+        res[name] = {"device_ms": ms, "host_enqueue_ms": host}
+    return res
+
+
 # ------------------------------------------------------------- JPEG run
 def plain_jpeg_session(settings) -> JpegEncoderSession:
     """A JPEG session whose step runs the plain versions on the card."""
@@ -1546,13 +1598,16 @@ def jpeg_kernel_checks(frames, sess) -> dict:
         check(err == 0, f"jpeg_pack ({tag}) differs from plain (err {err})")
         if tag == "overflow":
             check(k9.flags.tolist() == [1, 1], "jpeg_pack flags not raised")
-        elif tag == "stock":
-            ms = time_fn(lambda: JPP.jpeg_pack(*k8, *caps), 20, flush=flush,
-                         hide_launch=True)
-            pms = time_fn(lambda: JPP.jpeg_pack_plain(*k8, *caps), 3)
-            # an exclusive scan, the shifts and two adds per slot
-            out["jpeg_pack"] = (err, ms, pms, nbytes(*k8, *k9),
-                                10 * k8[0].numel(), None)
+            continue
+        ms = time_fn(lambda: JPP.jpeg_pack(*k8, *caps), 20, flush=flush,
+                     hide_launch=True)
+        pms = time_fn(lambda: JPP.jpeg_pack_plain(*k8, *caps), 3)
+        # an exclusive scan, the shifts and two adds per slot
+        rec = (err, ms, pms, k9_bytes(k8[1], k9), 10 * k8[0].numel(), None)
+        point("jpeg_pack 1080p" + (" 2x caps" if tag == "grown" else ""),
+              ms, *rec[3:5], pms)
+        if tag == "stock":
+            out["jpeg_pack"] = rec
     return out
 
 
@@ -2234,7 +2289,7 @@ def seat_kernel_checks(dev, h264_caps, jpeg_caps) -> dict:
                          20, flush=flush, hide_launch=True)
             pms = time_fn(lambda: JPP.jpeg_pack_seats_plain(
                 *k8, *caps, n_seats=n), 3)
-            out["jpeg_pack_seats"][n] = (err, ms, pms, nbytes(*k8, *k9),
+            out["jpeg_pack_seats"][n] = (err, ms, pms, k9_bytes(k8[1], k9),
                                          10 * k8[0].numel(), None)
     return out
 
@@ -2803,8 +2858,8 @@ def main() -> int:
                                jpeg_buffer_caps(jg, False))
     for name, per_n in srecs.items():
         for n, (err, ms, pms, by, ops, _) in per_n.items():
-            if name == "pack_stream_seats":
-                point(f"pack_stream_seats S={n}", ms, by, ops, pms)
+            if name in ("pack_stream_seats", "jpeg_pack_seats"):
+                point(f"{name} S={n}", ms, by, ops, pms)
             t_b = bound_ms(by, ops)
             print(f"  {name} at {n} seats: {ms:.4f} ms (plain {pms:.2f} "
                   f"ms, bound {t_b:.4f} ms)")
@@ -2829,6 +2884,9 @@ def main() -> int:
     jtimes = jpeg_frame_times(jsettings, {"full": (255 - jf0, jf0),
                                           "damaged": (jf0, jf1),
                                           "idle": (jf1, jf1)})
+    jstep_times = jpeg_step_device_times(jsettings,
+                                         {"full": (255 - jf0, jf0),
+                                          "idle": (jf0, jf0)})
     syncs = sync_checks(settings, dsettings, base, typed,
                         dataclasses.replace(dsettings, h264_roi_qp=True))
     fsyncs = sync_checks(dataclasses.replace(settings, fullcolor=True),
@@ -2861,6 +2919,9 @@ def main() -> int:
     print("step device times, fullcolor default configuration (ms between "
           f"CUDA events, {g.width}x{g.height}, stock 4:4:4 caps, L2 "
           "flushed, median of 7): " + json.dumps(fstep_times))
+    print("step device times, jpeg configuration (K6-K9; ms between CUDA "
+          f"events, {jg.width}x{jg.height}, stock caps, L2 flushed, median "
+          "of 7): " + json.dumps(jstep_times))
     print(f"fullcolor path launches: {json.dumps(fc['launches'])}")
     for k, (err, ms, _, by, ops, _) in k4_444.items():
         point(k, ms, by, ops)
@@ -2913,7 +2974,8 @@ def main() -> int:
               f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
-    print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 timing points (ms between "
+    print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 timing points "
+          "(ms between "
           "CUDA events after an L2 flush, median of 20; bound and plain ms "
           "as in the kernels line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")

@@ -26,12 +26,18 @@
 // (edge.sum + 8) >> 4 of that component's edge, exactly as
 // _dc_scan_comp orders it). Phase 3: the recon, recomputed from the
 // pixels, into the reference planes for rows whose stripe is sent, and
-// one thread per MB for the shared AC flag and the header. P: one
-// half-warp per MB, a lane per block position walking the three
-// components; the group bits are a half-warp OR reduction. With zero
-// motion the prediction is the reference plane itself: each lane reads
-// its own 4x4 of a component before it writes it, and no other lane
-// touches it; with motion the prediction is K5's scratch planes.
+// one thread per MB for the shared AC flag and the header. P: K2-P's
+// design (csrc/mb_encode.cu) on the 4:4:4 layout, a block of 4 MBs of a
+// row and 192 threads, a thread a (component, 4x4 block), each warp one
+// component (one QP, quant constants read once a thread); cur and the
+// prediction staged in shared memory with 16-byte loads, the levels
+// stored as whole 16-byte chunks, the recon as 16-byte row pieces, the
+// cbp group bits ORed over the components through shared memory. With
+// zero motion the prediction is the reference plane itself: a block
+// stages it whole before its first barrier and writes recon only after
+// its second, and blocks own disjoint MBs; with motion the prediction is
+// K5's scratch planes. Launched behind the kernel before it
+// (programmatic dependent launch). Bound: bytes (~29 MB at 1080p).
 #include "h264_common.cuh"
 
 // ---------------------------------------------------------------- I frames
@@ -163,84 +169,201 @@ __global__ void mb_encode_i444_kernel(const uint8_t* __restrict__ yp,
 // ---------------------------------------------------------------- P frames
 // pred_* may alias ref_* (zero motion, mv null); mv (R, M, 2) quarter-pel
 // (mvx, mvy); send_rows (R,) gates the recon write per MB row.
-__global__ void mb_encode_p444_kernel(const uint8_t* __restrict__ yp,
-                                      const uint8_t* __restrict__ up,
-                                      const uint8_t* __restrict__ vp,
-                                      const int* __restrict__ qp_rows,
-                                      const int* __restrict__ send_rows,
-                                      const uint8_t* pred_y,
-                                      const uint8_t* pred_u,
-                                      const uint8_t* pred_v,
-                                      const int* __restrict__ mv,
-                                      uint8_t* ref_y, uint8_t* ref_u,
-                                      uint8_t* ref_v, int16_t* __restrict__ lv,
-                                      int* __restrict__ cbp_out,
-                                      int* __restrict__ hdr_pay,
-                                      int* __restrict__ hdr_nb, int R, int M) {
-  const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 4;
-  if (g >= R * M) return;                      // whole half-warp leaves
-  const unsigned hmask = 0xFFFFu << (threadIdx.x & 16);
-  const int l = threadIdx.x & 15;
-  const int r = g / M, m = g % M;
-  const int W = M * 16;
-  const int by = l >> 2, bx = l & 3;
-  const int r0 = 16 * r + 4 * by, c0 = 16 * m + 4 * bx;
-  const int g8 = (by >> 1) * 2 + (bx >> 1);
+//
+// A block takes P4_NB consecutive MBs of one row with 48 threads an MB, a
+// thread a (component, 4x4 block): warps 0-1 code Y, 2-3 U, 4-5 V (a
+// half-warp an MB), so each warp has one QP and each thread reads its
+// quant constants once. The three planes' cur and prediction pixels are
+// staged in shared memory (16-byte loads; a 4:4:4 row is 16 * M bytes,
+// so rows are 16-byte aligned wherever the base is), all of them before
+// the first barrier, so a prediction that is the reference itself is
+// read whole before any recon is written. Each half-warp's 8x8 group
+// bits go to shared memory; after the first barrier they are ORed over
+// the three components (the MB's cbp) and gate the recon, which replaces
+// the cur stage. Levels go into a shared stage as whole 32-byte slots
+// and leave, after the second barrier, as the block's contiguous run of
+// 16-byte chunks; the recon leaves as 16-byte row pieces for sent rows;
+// a thread an MB writes its header slots and cbp as 8-byte pairs.
+#define P4_NB 4                      // MBs a block, consecutive in one row
+#define P4_THREADS (48 * P4_NB)      // a thread a (component, 4x4 block)
+#define P4_PITCH (16 * P4_NB + 16)   // stage pitch (bytes)
+#define P4_SLOT_V4 (2 * NB_P444)     // an MB's levels in 16-byte chunks
+
+struct P4Stage {
+  uint4 lv[P4_NB * P4_SLOT_V4];      // the block's levels, as stored
+  // cur Y, U, V (then the recon), the prediction's Y, U, V
+  uint8_t pix[6][16 * P4_PITCH];
+  int g8[3][P4_NB];                  // each component's group bits
+};
+
+// FAST: every block of the shape is whole (M a multiple of P4_NB) and all
+// nine planes sit on 16-byte boundaries (the host checks), so the stage
+// moves in 16-byte pieces; otherwise each plane goes in the widest pieces
+// it allows (a row's last block of fewer MBs, planes off 16 bytes). Two
+// kernels, so the common one carries no code for the rare shapes (with
+// the L2 cold a kernel's code comes from device memory).
+template <bool FAST>
+__global__ void __launch_bounds__(P4_THREADS, 4)
+mb_encode_p444_kernel(const uint8_t* __restrict__ yp,
+                      const uint8_t* __restrict__ up,
+                      const uint8_t* __restrict__ vp,
+                      const int* __restrict__ qp_rows,
+                      const int* __restrict__ send_rows,
+                      const uint8_t* pred_y, const uint8_t* pred_u,
+                      const uint8_t* pred_v, const int* __restrict__ mv,
+                      uint8_t* ref_y, uint8_t* ref_u, uint8_t* ref_v,
+                      int16_t* __restrict__ lv, int* __restrict__ cbp_out,
+                      int* __restrict__ hdr_pay, int* __restrict__ hdr_nb,
+                      int M) {
+  __shared__ P4Stage st;
+  // the kernel before it has finished and its writes are visible: no read
+  // comes before this
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int t = threadIdx.x, lane = t & 31;
+  const int r = blockIdx.y, m0 = blockIdx.x * P4_NB;
+  const int nb = M - m0 < P4_NB ? M - m0 : P4_NB;
+  const int W = 16 * M;
+  const int g0 = r * M + m0;
+  // every global read a thread makes is issued before the first barrier:
+  // the QP, the send gate, a header thread's vectors, the stage
+  const int c = t >> 6;                          // component
+  const int mb = (t >> 4) & 3, b = t & 15;       // MB, raster 4x4 block
   const int qp = qp_rows[r];
-  const int qpc = K_QPC[clampi(qp, 0, 51)];
-  const uint8_t* cur[3] = {yp, up, vp};
-  const uint8_t* pred[3] = {pred_y, pred_u, pred_v};
-  uint8_t* ref[3] = {ref_y, ref_u, ref_v};
-  int16_t* lv_mb = lv + static_cast<size_t>(g) * NB_P444 * 16;
-  const int mvx = mv ? mv[2 * g] : 0, mvy = mv ? mv[2 * g + 1] : 0;
-
-  int acl[3][16];
-  bool nz = false;
-#pragma unroll
-  for (int c = 0; c < 3; c++) {
-    int x[16], pr[16], w[16];
-    load4x4(cur[c], W, r0, c0, x);
-    load4x4(pred[c], W, r0, c0, pr);
-    for (int k = 0; k < 16; k++) x[k] -= pr[k];
-    fwd4(x, w);
-    const int qq = c ? qpc : qp;
-    for (int k = 0; k < 16; k++)
-      acl[c][k] = quant_ac(w[k], qq, K_POS_CLS[k], 6);
-    store_scan(lv_mb + (16 * c + K_CODING_OF_RASTER[l]) * 16, acl[c], 0);
-    nz |= any_nz(acl[c]);
-  }
-  const int cbp = __reduce_or_sync(hmask, nz ? (1 << g8) : 0);
-  const bool coded = cbp != 0 || mvx != 0 || mvy != 0;
-
-  if (send_rows[r] != 0) {
-    const bool on = ((cbp >> g8) & 1) && coded;
-#pragma unroll
-    for (int c = 0; c < 3; c++) {
-      const int qq = c ? qpc : qp;
-      int pr[16], d[16], inv[16], rec[16];
-      load4x4(pred[c], W, r0, c0, pr);
-      for (int k = 0; k < 16; k++)
-        d[k] = dequant_ac(on ? acl[c][k] : 0, qq, K_POS_CLS[k]);
-      inv4(d, inv);
-      for (int k = 0; k < 16; k++) rec[k] = clip1(pr[k] + ((inv[k] + 32) >> 6));
-      store4x4(ref[c], W, r0, c0, rec);
+  const bool sent = send_rows[r] != 0;
+  int mvx = 0, mvy = 0, lx = 0, ly = 0;
+  if (mv && t < nb) {                            // MB t's header thread
+    const int g = g0 + t;
+    mvx = mv[2 * g];
+    mvy = mv[2 * g + 1];
+    if (m0 + t > 0) {                            // the left neighbour's
+      lx = mv[2 * g - 2];
+      ly = mv[2 * g - 1];
     }
   }
-  if (l == 0) {
-    cbp_out[g] = cbp;
-    int* hp = hdr_pay + static_cast<size_t>(g) * HDR_SLOTS;
-    int* hn = hdr_nb + static_cast<size_t>(g) * HDR_SLOTS;
-    for (int k = 0; k < HDR_SLOTS; k++) { hp[k] = 0; hn[k] = 0; }
-    if (coded) {                               // slot 0, the skip run: K4's
-      // MV predictor = left neighbour (one slice per MB row, §8.4.1.3)
-      const int lx = (m > 0 && mv) ? mv[2 * g - 2] : 0;
-      const int ly = (m > 0 && mv) ? mv[2 * g - 1] : 0;
+  const size_t o = static_cast<size_t>(16 * r) * W + 16 * m0;
+  if constexpr (FAST) {
+    // 6 planes x 16 rows x P4_NB pieces, two a thread, loads first
+    constexpr int NP = 16 * P4_NB;
+    constexpr int K = (6 * NP + P4_THREADS - 1) / P4_THREADS;
+    uint4 v[K];
+#pragma unroll
+    for (int i = 0; i < K; i++) {
+      const int j = t + i * P4_THREADS, p = j / NP, y = (j % NP) / P4_NB,
+                k = j % P4_NB;
+      // (a select chain: an indexed pointer array would live in local
+      // memory)
+      const uint8_t* src = p == 0 ? yp : p == 1 ? up : p == 2 ? vp
+                         : p == 3 ? pred_y : p == 4 ? pred_u : pred_v;
+      if (j < 6 * NP)
+        v[i] = *reinterpret_cast<const uint4*>(
+            src + o + static_cast<size_t>(y) * W + 16 * k);
+    }
+#pragma unroll
+    for (int i = 0; i < K; i++) {
+      const int j = t + i * P4_THREADS, p = j / NP, y = (j % NP) / P4_NB,
+                k = j % P4_NB;
+      if (j < 6 * NP)
+        *reinterpret_cast<uint4*>(st.pix[p] + y * P4_PITCH + 16 * k) =
+            v[i];
+    }
+  } else {
+    const uint8_t* curp[3] = {yp, up, vp};
+    const uint8_t* predp[3] = {pred_y, pred_u, pred_v};
+#pragma unroll
+    for (int p = 0; p < 3; p++) {
+      stage_rect<true, 16 * P4_NB>(st.pix[p], P4_PITCH, curp[p] + o, W, 16,
+                                   16 * nb, t, P4_THREADS);
+      stage_rect<true, 16 * P4_NB>(st.pix[3 + p], P4_PITCH, predp[p] + o, W,
+                                   16, 16 * nb, t, P4_THREADS);
+    }
+  }
+  __syncthreads();
+
+  // ---- thread (c, mb, b) codes 4x4 block b of component c of MB mb
+  const int by = b >> 2, bx = b & 3;
+  const QuantP q = quant_p_consts(c ? K_QPC[clampi(qp, 0, 51)] : qp, 6);
+  const int so = 4 * by * P4_PITCH + 16 * mb + 4 * bx;
+  int x[16], pr[16], w[16], acl[16];
+  load4x4_shared(st.pix[c] + so, P4_PITCH, x);
+  load4x4_shared(st.pix[3 + c] + so, P4_PITCH, pr);
+#pragma unroll
+  for (int k = 0; k < 16; k++) x[k] -= pr[k];
+  fwd4(x, w);
+#pragma unroll
+  for (int k = 0; k < 16; k++)
+    acl[k] = quant_p(w[k], q.mf[pos_cls(k)], q.f, q.qbits);
+  // the MB's 16 blocks of this component are one half-warp: its four
+  // 8x8 group bits
+  const unsigned m16 =
+      (__ballot_sync(0xffffffffu, any_nz(acl)) >> (lane & 16)) & 0xFFFFu;
+  uint4* slots = st.lv + mb * P4_SLOT_V4;
+  store_slot<false>(slots + 2 * (16 * c + coding_of_raster(b)), acl);
+  if (b == 0)
+    st.g8[c][mb] = ((m16 & 0x0033u) ? 1 : 0) | ((m16 & 0x00CCu) ? 2 : 0) |
+                   ((m16 & 0x3300u) ? 4 : 0) | ((m16 & 0xCC00u) ? 8 : 0);
+  __syncthreads();
+  const int cbp = st.g8[0][mb] | st.g8[1][mb] | st.g8[2][mb];
+  if (sent) {
+    // a group's blocks of every component are dequantized when the MB's
+    // cbp bit is set (which makes the MB coded)
+    const bool on = (cbp >> ((by >> 1) * 2 + (bx >> 1))) & 1;
+    int d[16], inv[16];
+#pragma unroll
+    for (int k = 0; k < 16; k++)
+      d[k] = dequant_p(on ? acl[k] : 0, q.ls[pos_cls(k)], q.dadd, q.dsh);
+    inv4(d, inv);
+    load4x4_shared(st.pix[3 + c] + so, P4_PITCH, pr);
+#pragma unroll
+    for (int k = 0; k < 16; k++) x[k] = clip1(pr[k] + ((inv[k] + 32) >> 6));
+    store4x4_shared(st.pix[c] + so, P4_PITCH, x);
+  }
+  __syncthreads();
+
+  // ---- the block's MBs are contiguous in lv, cbp and the header slots
+  const uint4* src = st.lv;
+  uint4* dst = reinterpret_cast<uint4*>(lv) +
+               static_cast<size_t>(g0) * P4_SLOT_V4;
+  for (int i = t; i < nb * P4_SLOT_V4; i += P4_THREADS) dst[i] = src[i];
+  if (sent) {
+    if constexpr (FAST) {
+      // 3 planes x 16 rows x P4_NB pieces: one a thread
+      const int p = t / (16 * P4_NB), y = (t % (16 * P4_NB)) / P4_NB,
+                k = t % P4_NB;
+      uint8_t* dst8 = p == 0 ? ref_y : p == 1 ? ref_u : ref_v;
+      *reinterpret_cast<uint4*>(dst8 + o + static_cast<size_t>(y) * W +
+                                16 * k) =
+          *reinterpret_cast<const uint4*>(st.pix[p] + y * P4_PITCH + 16 * k);
+    } else {
+      uint8_t* refp[3] = {ref_y, ref_u, ref_v};
+#pragma unroll
+      for (int p = 0; p < 3; p++)
+        stage_rect<false, 16 * P4_NB>(st.pix[p], P4_PITCH, refp[p] + o, W,
+                                      16, 16 * nb, t, P4_THREADS);
+    }
+  }
+  if (t < nb) {
+    const int g = g0 + t;
+    const int mcbp = st.g8[0][t] | st.g8[1][t] | st.g8[2][t];
+    int hp[HDR_SLOTS] = {0, 0, 0, 0, 0, 0}, hn[HDR_SLOTS] = {0, 0, 0, 0, 0, 0};
+    if (mcbp != 0 || mvx != 0 || mvy != 0) {   // coded; slot 0, the skip
+      // run, is the packer's. MV predictor = left neighbour (one slice
+      // per MB row, §8.4.1.3)
       hp[1] = 1; hn[1] = 1;                    // mb_type P_L0_16x16
       se_event(mvx - lx, &hp[2], &hn[2]);
       se_event(mvy - ly, &hp[3], &hn[3]);
-      ue_event(K_CBP444[cbp], &hp[4], &hn[4]); // me(v), ChromaArrayType 3
-      if (cbp != 0) { hp[5] = 1; hn[5] = 1; }  // mb_qp_delta ue(0)
+      ue_event(K_CBP444[mcbp], &hp[4], &hn[4]); // me(v), ChromaArrayType 3
+      if (mcbp != 0) { hp[5] = 1; hn[5] = 1; } // mb_qp_delta ue(0)
     }
+    int2* gp = reinterpret_cast<int2*>(hdr_pay + static_cast<size_t>(g) *
+                                       HDR_SLOTS);
+    int2* gn = reinterpret_cast<int2*>(hdr_nb + static_cast<size_t>(g) *
+                                       HDR_SLOTS);
+#pragma unroll
+    for (int k = 0; k < HDR_SLOTS / 2; k++) {
+      gp[k] = make_int2(hp[2 * k], hp[2 * k + 1]);
+      gn[k] = make_int2(hn[2 * k], hn[2 * k + 1]);
+    }
+    cbp_out[g] = mcbp;
   }
 }
 
@@ -261,6 +384,12 @@ extern "C" int mb_encode_i444(const uint8_t* y, const uint8_t* u,
   return static_cast<int>(cudaGetLastError());
 }
 
+// every pointer on a 16-byte boundary
+template <typename... T>
+static bool aligned16(T... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
+}
+
 extern "C" int mb_encode_p444(const uint8_t* y, const uint8_t* u,
                               const uint8_t* v, const int* qp,
                               const int* send_rows, const uint8_t* pred_y,
@@ -269,11 +398,26 @@ extern "C" int mb_encode_p444(const uint8_t* y, const uint8_t* u,
                               uint8_t* ref_v, int16_t* lv, int* cbp,
                               int* hdr_pay, int* hdr_nb, int R, int M,
                               void* stream) {
-  const int threads = 128;                     // 8 MBs a block
-  const int blocks = (16 * R * M + threads - 1) / threads;
-  mb_encode_p444_kernel<<<blocks, threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv, ref_y, ref_u, ref_v,
-      lv, cbp, hdr_pay, hdr_nb, R, M);
+  if (R <= 0 || M <= 0 || R > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // launched behind the kernel before it (programmatic dependent launch:
+  // K5's 4:4:4 entry on the band path, K13 with zero motion), which it
+  // waits for inside
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((M + P4_NB - 1) / P4_NB, R);
+  cfg.blockDim = dim3(P4_THREADS);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const bool fast = M % P4_NB == 0 && aligned16(y, u, v, pred_y, pred_u,
+                                                pred_v, ref_y, ref_u, ref_v);
+  cudaLaunchKernelEx(&cfg,
+                     fast ? mb_encode_p444_kernel<true>
+                          : mb_encode_p444_kernel<false>,
+                     y, u, v, qp, send_rows, pred_y, pred_u, pred_v, mv,
+                     ref_y, ref_u, ref_v, lv, cbp, hdr_pay, hdr_nb, M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -67,13 +67,16 @@
 //     scatter-add: the bit ranges are disjoint, and where a row spills the
 //     sum is what the reference computes; a seat's rows never spill past
 //     its R * w_cap words.
-// (3) stream_bytes_kernel: the byte buffer (zero-padded rows back to
-//     back, zeros to out_cap), 16 bytes a thread: each block scans the
-//     seat's R row byte lengths with one warp, a thread finds its row by
-//     binary search and, where its 16 bytes lie inside one row's words,
-//     funnel-shifts five big-endian words into one 16-byte store. The
-//     first block of each seat writes the seat's byte lengths and flags
-//     (grid (1) leaves each row's event count in byte_lens for it).
+// (3) stream_bytes_kernel<false> of stripe_bytes.cuh, the byte stage K9
+//     shares (with its pad-with-ones flag off): the byte buffer
+//     (zero-padded rows back to back, zeros to out_cap), 16 bytes a
+//     thread: each block scans the seat's R row byte lengths with one
+//     warp, a thread finds its row by binary search and, where its 16
+//     bytes lie inside one row's words, funnel-shifts five big-endian
+//     words into one 16-byte store. The first block of each seat writes
+//     the seat's byte lengths and flags (grid (1) leaves each row's event
+//     count in byte_lens for it). Bound by the words' read from L2 and
+//     the buffer's write.
 //
 // Seats: pack_stream_seats replaces the same functions vmapped over the
 // seat axis by selkies_tpu/parallel/h264_seats.py:MultiSeatH264Encoder.
@@ -83,11 +86,10 @@
 // R * w_cap words (seat k's last row never reaches seat k + 1's first),
 // and each seat has its own flags pair and (out_cap,) byte buffer.
 // pack_stream is the S = 1 case.
-#include "h264_common.cuh"
+#include "stripe_bytes.cuh"
 
 namespace {
 
-constexpr int kWords = 2048;        // a block's words in shared memory
 constexpr int kSteps = 7;           // 256-slot steps an MB, at most
 constexpr int kMaxMBs = 132;        // MBs a block
 constexpr int kMaxRank = 8;         // blocks a row (the cluster)
@@ -128,96 +130,6 @@ struct alignas(16) Head {
   int tail_off, tail_pay, tail_nb, nev;
 };
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return static_cast<int>(r);
-}
-
-// the shared address ``a`` of this block, in block ``rank`` of the cluster
-__device__ __forceinline__ unsigned map_rank(unsigned a, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster(unsigned a, int v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;" :: "r"(a), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ int misalign(const void* p) {
-  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
-}
-
-// the 16-byte-aligned span covering [src, src + bytes)
-__device__ __forceinline__ uintptr_t span_lo(const void* src) {
-  return reinterpret_cast<uintptr_t>(src) & ~static_cast<uintptr_t>(15);
-}
-
-__device__ __forceinline__ unsigned span_len(const void* src,
-                                             unsigned bytes) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  return static_cast<unsigned>(
-      ((a + bytes + 15) & ~static_cast<uintptr_t>(15)) - span_lo(src));
-}
-
-// one thread: copies of spans (src[i], bytes[i]) to dst[i] (16-byte
-// aligned), completing on ``bar``
-template <int N>
-__device__ __forceinline__ void bulk_copies(char* const (&dst)[N],
-                                            const void* const (&src)[N],
-                                            const unsigned (&bytes)[N],
-                                            unsigned long long* bar) {
-  unsigned tx = 0;
-#pragma unroll
-  for (int i = 0; i < N; i++) tx += span_len(src[i], bytes[i]);
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(tx) : "memory");
-#pragma unroll
-  for (int i = 0; i < N; i++)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];"
-        :: "r"(smem_u32(dst[i])), "l"(span_lo(src[i])),
-           "r"(span_len(src[i], bytes[i])), "r"(smem_u32(bar))
-        : "memory");
-}
-
 // one thread: the payloads of the block's MBs [m0, m0 + n) into a stage
 __device__ __forceinline__ void issue_stage(const PackArgs& a, char* stage,
                                             unsigned long long* bar,
@@ -228,90 +140,9 @@ __device__ __forceinline__ void issue_stage(const PackArgs& a, char* stage,
   bulk_copies<1>(dst, src, bytes, bar);
 }
 
-// Where a row's word goes. Rows pass: below w_cap, into the block's
-// shared buffer (words ws .. ws + kWords) or past it a global atomic;
-// spill pass: only words past w_cap, up to the seat's end.
-template <bool SPILL>
-struct Sink {
-  unsigned sw;          // shared address of the block's words
-  unsigned* gw;         // the row's first global word
-  int ws, w_cap;
-  long long room;       // words from the row's first to the seat's end
-
-  __device__ __forceinline__ void add(int w, unsigned v) const {
-    if (!v) return;
-    if constexpr (SPILL) {
-      if (w >= w_cap && w < room) atomicAdd(&gw[w], v);
-    } else if (w < w_cap) {
-      const int i = w - ws;
-      if (i < kWords)
-        asm volatile("red.shared.add.u32 [%0], %1;"
-                     :: "r"(sw + 4u * static_cast<unsigned>(i)), "r"(v)
-                     : "memory");
-      else
-        atomicAdd(&gw[w], v);
-    }
-  }
-
-  // event (pay, nb > 0) at bit ``off`` of the row, MSB first
-  __device__ __forceinline__ void put(int off, unsigned pay, int nb) const {
-    const int w0 = off >> 5;
-    const int sh = 32 - ((off & 31) + nb);
-    add(w0, sh >= 0 ? pay << sh : pay >> (-sh));
-    if (sh < 0) add(w0 + 1, pay << (32 + sh));
-  }
-
-  // n (1..64) bits, right-aligned in v, at bit ``off`` of the row
-  __device__ __forceinline__ void put_run(int off, unsigned long long v,
-                                          int n) const {
-    const int w0 = off >> 5, sh = 96 - (off & 31) - n;   // 1..95
-    if (sh >= 64) {
-      add(w0, static_cast<unsigned>(v << (sh - 64)));
-    } else {
-      const unsigned long long lo = v << sh;
-      add(w0, static_cast<unsigned>(v >> (64 - sh)));
-      add(w0 + 1, static_cast<unsigned>(lo >> 32));
-      add(w0 + 2, static_cast<unsigned>(lo));
-    }
-  }
-
-  // a lane's events in bit order, summed into whole words
-  // (word ``cw``, sum ``cv``) before they are added: one atomic a word
-  // a lane, not one an event
-  __device__ __forceinline__ void merge(int& cw, unsigned& cv, int off,
-                                        unsigned pay, int nb) const {
-    const int w0 = off >> 5;
-    const int sh = 32 - ((off & 31) + nb);
-    if (w0 != cw) {
-      add(cw, cv);
-      cw = w0;
-      cv = 0u;
-    }
-    cv += sh >= 0 ? pay << sh : pay >> (-sh);
-    if (sh < 0) {
-      add(cw, cv);
-      cw = w0 + 1;
-      cv = pay << (32 + sh);
-    }
-  }
-};
-
 __device__ __forceinline__ void qp_event(int qp, int* p, int* n) {
   const int d = qp - 26;
   ue_event(d > 0 ? 2 * d - 1 : -2 * d, p, n);
-}
-
-__device__ __forceinline__ int warp_incl_sum(int v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-  return __reduce_add_sync(0xffffffffu, v);   // one redux.sync
 }
 
 // The block's MBs of its row, where their slots sit in shared memory.
@@ -393,26 +224,6 @@ __device__ __forceinline__ void place_task(const PackArgs& a, const Block& b,
     }
     sink.add(cw, cv);
   }
-}
-
-// words [i0, i1) of a row, each val(i), with 16-byte stores where the
-// address allows
-template <class Val>
-__device__ __forceinline__ void store_words(unsigned* g, int i0, int i1,
-                                            Val val) {
-  if (i1 <= i0) return;
-  const int n = i1 - i0;
-  const int head = min(n, static_cast<int>(
-      ((16 - (reinterpret_cast<uintptr_t>(g + i0) & 15)) & 15) >> 2));
-  for (int i = threadIdx.x; i < head; i += blockDim.x) g[i0 + i] = val(i0 + i);
-  const int b0 = i0 + head, nq = (n - head) >> 2;
-  uint4* gq = reinterpret_cast<uint4*>(g + b0);
-  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
-    const int i = b0 + 4 * q;
-    gq[q] = make_uint4(val(i), val(i + 1), val(i + 2), val(i + 3));
-  }
-  for (int i = b0 + 4 * nq + threadIdx.x; i < i1; i += blockDim.x)
-    g[i] = val(i);
 }
 
 // SPILL false: grid (1); true: grid (2). A cluster of P blocks a row,
@@ -728,118 +539,6 @@ pack_rows_kernel(const PackArgs a) {
   }
 }
 
-// (3) the byte buffer of each seat (blockIdx.y), 16 bytes a thread
-__global__ void __launch_bounds__(256)
-stream_bytes_kernel(const unsigned* __restrict__ words,
-                    const int* __restrict__ total_bits,
-                    int* __restrict__ byte_lens, int* __restrict__ flags,
-                    int R, int e_cap, int w_cap, int out_cap,
-                    uint8_t* __restrict__ data) {
-  extern __shared__ long long starts[];   // R + 1 (last: the total)
-  // launched behind grid (2): wait for the words to be complete
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  const int seat = blockIdx.y;
-  words += static_cast<long long>(seat) * R * w_cap;
-  total_bits += static_cast<long long>(seat) * R;
-  byte_lens += static_cast<long long>(seat) * R;
-  data += static_cast<long long>(seat) * out_cap;
-  for (int k = threadIdx.x; k < R; k += blockDim.x) starts[k] = total_bits[k];
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    // the rows' byte starts; the first block also the seat's byte
-    // lengths (in place of the event counts grid (1) left) and flags
-    const int lane = threadIdx.x;
-    long long carry = 0;
-    int bad = 0;
-    for (int k0 = 0; k0 < R; k0 += 32) {
-      const int k = k0 + lane;
-      const int tb = k < R ? static_cast<int>(starts[k]) : 0;
-      const int v = (tb + 7) >> 3;
-      const int incl = warp_incl_sum(v, lane);
-      if (k < R) {
-        starts[k] = carry + incl - v;
-        if (blockIdx.x == 0) {
-          bad |= byte_lens[k] > e_cap || tb > w_cap * 32;
-          byte_lens[k] = v;
-        }
-      }
-      carry += __shfl_sync(0xffffffffu, incl, 31);
-    }
-    bad = __any_sync(0xffffffffu, bad);
-    if (lane == 0) {
-      starts[R] = carry;
-      if (blockIdx.x == 0) {
-        flags[2 * seat] = bad;
-        flags[2 * seat + 1] = carry > out_cap;
-      }
-    }
-  }
-  __syncthreads();
-  const long long j0 = (static_cast<long long>(blockIdx.x) * blockDim.x
-                        + threadIdx.x) * 16;
-  if (j0 >= out_cap) return;
-  const long long total = starts[R];
-  const long long B = 4LL * w_cap;
-  auto row_of = [&](long long j) {         // last k with starts[k] <= j
-    int lo = 0, hi = R;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (starts[mid] <= j) lo = mid + 1; else hi = mid;
-    }
-    return clampi(lo - 1, 0, R - 1);
-  };
-  unsigned out[4] = {0u, 0u, 0u, 0u};      // little-endian byte order
-  if (j0 < total) {
-    const int k = row_of(j0);
-    const long long local0 = j0 - starts[k];
-    const unsigned* w = words + static_cast<long long>(k) * w_cap;
-    if (j0 + 16 <= starts[k + 1] && local0 >= 0 && local0 + 16 <= B) {
-      // one row, inside its words: five big-endian words, shifted
-      const long long q = local0 >> 2;
-      const int sh = static_cast<int>(local0 & 3) * 8;
-      unsigned v[5];
-#pragma unroll
-      for (int i = 0; i < 4; i++) v[i] = w[q + i];
-      v[4] = sh && q + 4 < w_cap ? w[q + 4] : 0u;
-#pragma unroll
-      for (int i = 0; i < 4; i++)
-        out[i] = __byte_perm(__funnelshift_l(v[i + 1], v[i], sh), 0, 0x0123);
-    } else {
-      // across a row's end or past its words: every byte's word first
-      // (rows walked forward from k), then the 16 loads at once
-      long long at[16];
-      int sh[16];
-      int kb = k;
-#pragma unroll
-      for (int b = 0; b < 16; b++) {
-        const long long j = j0 + b;
-        while (kb + 1 < R && starts[kb + 1] <= j) kb++;
-        long long local = j - starts[kb];
-        local = local < 0 ? 0 : (local > B - 1 ? B - 1 : local);
-        at[b] = j < total && j < out_cap
-            ? static_cast<long long>(kb) * w_cap + (local >> 2) : -1;
-        sh[b] = 24 - 8 * static_cast<int>(local & 3);
-      }
-      unsigned wd[16];
-#pragma unroll
-      for (int b = 0; b < 16; b++) wd[b] = at[b] >= 0 ? words[at[b]] : 0u;
-#pragma unroll
-      for (int b = 0; b < 16; b++)
-        out[b >> 2] |= ((wd[b] >> sh[b]) & 0xFFu) << (8 * (b & 3));
-    }
-  }
-  uint8_t* dst = data + j0;
-  if (j0 + 16 <= out_cap && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(out[0], out[1], out[2],
-                                                out[3]);
-  } else {
-    for (int b = 0; b < 16 && j0 + b < out_cap; b++)
-      dst[b] = static_cast<uint8_t>(out[b >> 2] >> (8 * (b & 3)));
-  }
-}
-
-int round16(long long x) { return static_cast<int>((x + 15) & ~15LL); }
-
 }  // namespace
 
 // S seats of R rows each: words (S * R, w_cap), total_bits and byte_lens
@@ -940,25 +639,9 @@ extern "C" int pack_stream_seats(const int* hdr_pay, const int* hdr_nb,
   cudaLaunchKernelEx(&cfg, pack_rows_kernel<false>, a);
   cfg.numAttrs = 2;
   cudaLaunchKernelEx(&cfg, pack_rows_kernel<true>, a);
-  const int threads = 256;
-  const long long chunks = (static_cast<long long>(out_cap) + 15) / 16;
-  const int starts_bytes = (R + 1) * static_cast<int>(sizeof(long long));
-  if (starts_bytes > 48 * 1024)
-    cudaFuncSetAttribute(stream_bytes_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         starts_bytes);
-  cudaLaunchConfig_t bcfg = {};
-  bcfg.gridDim = dim3(static_cast<unsigned>(
-      chunks > 0 ? (chunks + threads - 1) / threads : 1), S);
-  bcfg.blockDim = dim3(threads);
-  bcfg.dynamicSmemBytes = starts_bytes;
-  bcfg.stream = s;
-  bcfg.attrs = attr + 1;
-  bcfg.numAttrs = 1;
-  cudaLaunchKernelEx(&bcfg, stream_bytes_kernel,
-                     reinterpret_cast<const unsigned*>(words),
-                     static_cast<const int*>(total_bits), byte_lens, flags,
-                     R, e_cap, w_cap, out_cap, data);
+  launch_stream_bytes<false>(reinterpret_cast<const unsigned*>(words),
+                             total_bits, byte_lens, flags, S, R, e_cap,
+                             w_cap, out_cap, data, s);
   return static_cast<int>(cudaGetLastError());
 }
 

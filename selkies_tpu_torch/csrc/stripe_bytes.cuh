@@ -1,81 +1,418 @@
-// The ragged byte buffer of K9 jpeg_pack: JPEG stripes of MSB-first u32
-// words -> their bytes back to back in one fixed-capacity buffer, the
-// per-stripe byte lengths and the out_cap overflow flag (flags[1]).
+// The stream stage that K4 pack_stream (csrc/pack_stream.cu) and K9
+// jpeg_pack (csrc/jpeg_pack.cu) share: the cluster, mbarrier and TMA
+// bulk-copy helpers of their row kernels (a cluster of P blocks a row or
+// stripe, each block's slots brought into shared memory by cp.async.bulk),
+// the codeword sink their blocks place into words with (BitSink), the
+// 16-byte word stores, and the byte stage.
 //
-// Replaces selkies_tpu/ops/stripes.py:words_to_bytes_device (pad_ones=True:
-// the last partial byte of a stripe padded with ones) and
-// concat_stripe_bytes. One thread per output byte: each block rescans
-// the R stripe byte lengths, finds its stripe by binary search
-// (searchsorted, right side), clips the offset into the stripe's
-// 4 * w_cap bytes as the reference does, and splits the word big-endian;
-// bytes past the total are zero. A stripe longer than its words has no
-// last byte there to pad. (H.264's zero-padded byte stage is
-// stream_bytes_kernel in pack_stream.cu.)
-//
-// Seats (selkies_tpu/parallel/: the step vmapped over a leading seat
-// axis): the stripes of S seats lie back to back, R per seat, and each
-// seat has its own (out_cap,) buffer, byte lengths and flags pair;
-// blockIdx.y is the seat. One seat is the S = 1 case.
+// The byte stage, stream_bytes_kernel<PAD>, replaces selkies_tpu/ops/
+// stripes.py:words_to_bytes_device (PAD false for H.264's zero-padded
+// rows, true for JPEG's pad_ones=True) and concat_stripe_bytes: the
+// byte buffer of each seat (blockIdx.y), the rows' bytes back to back and
+// zeros to out_cap, 16 bytes a thread. Each block scans the seat's R row
+// byte lengths with one warp; a thread finds its row by binary search
+// and, where its 16 bytes lie inside one row's words, funnel-shifts five
+// big-endian words into one 16-byte store; across a row's end or past
+// its words (the offset clipped into the row's 4 * w_cap bytes, as the
+// reference does) it gathers byte by byte. With PAD a row's last byte
+// gets (1 << (8 - rem)) - 1 ORed in, rem = total_bits & 7, where that
+// byte lies inside the row's 4 * w_cap bytes (a row longer than its
+// words has no last byte there to pad). The first block of each seat
+// writes the seat's byte lengths, in place of the event counts the row
+// kernel left in byte_lens, and both flags: [0] a row with more events
+// than e_cap or more bits than 32 * w_cap, [1] the rows' bytes past
+// out_cap. Bound by bytes: the words read once (from L2, written just
+// before), the buffer written once; launched behind the row kernel
+// (programmatic dependent launch), it waits for it inside.
 #pragma once
 #include "h264_common.cuh"
 
-__global__ void concat_bytes_kernel(const unsigned* __restrict__ words,
-                                    const int* __restrict__ total_bits, int R,
-                                    int w_cap, int out_cap,
-                                    uint8_t* __restrict__ data,
-                                    int* __restrict__ byte_lens,
-                                    int* __restrict__ flags) {
+namespace {
+
+constexpr int kWords = 2048;        // a block's words in shared memory
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// the two halves of cluster_sync, for work between them
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// the shared address ``a`` of this block, in block ``rank`` of the cluster
+__device__ __forceinline__ unsigned map_rank(unsigned a, int rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster(unsigned a, int v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" :: "r"(a), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ int misalign(const void* p) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// the 16-byte-aligned span covering [src, src + bytes)
+__device__ __forceinline__ uintptr_t span_lo(const void* src) {
+  return reinterpret_cast<uintptr_t>(src) & ~static_cast<uintptr_t>(15);
+}
+
+__device__ __forceinline__ unsigned span_len(const void* src,
+                                             unsigned bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  return static_cast<unsigned>(
+      ((a + bytes + 15) & ~static_cast<uintptr_t>(15)) - span_lo(src));
+}
+
+// one thread: copies of spans (src[i], bytes[i]) to dst[i] (16-byte
+// aligned), completing on ``bar``
+template <int N>
+__device__ __forceinline__ void bulk_copies(char* const (&dst)[N],
+                                            const void* const (&src)[N],
+                                            const unsigned (&bytes)[N],
+                                            unsigned long long* bar) {
+  unsigned tx = 0;
+#pragma unroll
+  for (int i = 0; i < N; i++) tx += span_len(src[i], bytes[i]);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(tx) : "memory");
+#pragma unroll
+  for (int i = 0; i < N; i++)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];"
+        :: "r"(smem_u32(dst[i])), "l"(span_lo(src[i])),
+           "r"(span_len(src[i], bytes[i])), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// Codewords into words by addition (the bit ranges are disjoint, so the
+// sum is an OR, as the reference's scatter-add), MSB first; ``Words``
+// decides where word w of the row goes (its add(w, v)).
+template <class Words>
+struct BitSink {
+  Words words;
+
+  __device__ __forceinline__ void add(int w, unsigned v) const {
+    words.add(w, v);
+  }
+
+  // event (pay, nb > 0) at bit ``off`` of the row, MSB first
+  __device__ __forceinline__ void put(int off, unsigned pay, int nb) const {
+    const int w0 = off >> 5;
+    const int sh = 32 - ((off & 31) + nb);
+    add(w0, sh >= 0 ? pay << sh : pay >> (-sh));
+    if (sh < 0) add(w0 + 1, pay << (32 + sh));
+  }
+
+  // n (1..64) bits, right-aligned in v, at bit ``off`` of the row
+  __device__ __forceinline__ void put_run(int off, unsigned long long v,
+                                          int n) const {
+    const int w0 = off >> 5, sh = 96 - (off & 31) - n;   // 1..95
+    if (sh >= 64) {
+      add(w0, static_cast<unsigned>(v << (sh - 64)));
+    } else {
+      const unsigned long long lo = v << sh;
+      add(w0, static_cast<unsigned>(v >> (64 - sh)));
+      add(w0 + 1, static_cast<unsigned>(lo >> 32));
+      add(w0 + 2, static_cast<unsigned>(lo));
+    }
+  }
+
+  // a lane's events in bit order, summed into whole words
+  // (word ``cw``, sum ``cv``) before they are added: one atomic a word
+  // a lane, not one an event
+  __device__ __forceinline__ void merge(int& cw, unsigned& cv, int off,
+                                        unsigned pay, int nb) const {
+    const int w0 = off >> 5;
+    const int sh = 32 - ((off & 31) + nb);
+    if (w0 != cw) {
+      add(cw, cv);
+      cw = w0;
+      cv = 0u;
+    }
+    cv += sh >= 0 ? pay << sh : pay >> (-sh);
+    if (sh < 0) {
+      add(cw, cv);
+      cw = w0 + 1;
+      cv = pay << (32 + sh);
+    }
+  }
+};
+
+// red.shared.add of v into the word at shared address a
+__device__ __forceinline__ void red_shared(unsigned a, unsigned v) {
+  asm volatile("red.shared.add.u32 [%0], %1;" :: "r"(a), "r"(v) : "memory");
+}
+
+// K4's rows. Rows pass: below w_cap, into the block's shared buffer
+// (words ws .. ws + kWords) or past it a global atomic; spill pass (its
+// grid 2): only words past w_cap, up to the seat's end.
+template <bool SPILL>
+struct RowWords {
+  unsigned sw;          // shared address of the block's words
+  unsigned* gw;         // the row's first global word
+  int ws, w_cap;
+  long long room;       // words from the row's first to the seat's end
+
+  __device__ __forceinline__ void add(int w, unsigned v) const {
+    if (!v) return;
+    if constexpr (SPILL) {
+      if (w >= w_cap && w < room) atomicAdd(&gw[w], v);
+    } else if (w < w_cap) {
+      const int i = w - ws;
+      if (i < kWords)
+        red_shared(sw + 4u * static_cast<unsigned>(i), v);
+      else
+        atomicAdd(&gw[w], v);
+    }
+  }
+};
+
+template <bool SPILL>
+using Sink = BitSink<RowWords<SPILL>>;
+
+__device__ __forceinline__ int warp_incl_sum(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += t;
+  }
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  return __reduce_add_sync(0xffffffffu, v);   // one redux.sync
+}
+
+// words [i0, i1) of a row, each val(i), with 16-byte stores where the
+// address allows
+template <class Val>
+__device__ __forceinline__ void store_words(unsigned* g, int i0, int i1,
+                                            Val val) {
+  if (i1 <= i0) return;
+  const int n = i1 - i0;
+  const int head = min(n, static_cast<int>(
+      ((16 - (reinterpret_cast<uintptr_t>(g + i0) & 15)) & 15) >> 2));
+  for (int i = threadIdx.x; i < head; i += blockDim.x) g[i0 + i] = val(i0 + i);
+  const int b0 = i0 + head, nq = (n - head) >> 2;
+  uint4* gq = reinterpret_cast<uint4*>(g + b0);
+  for (int q = threadIdx.x; q < nq; q += blockDim.x) {
+    const int i = b0 + 4 * q;
+    gq[q] = make_uint4(val(i), val(i + 1), val(i + 2), val(i + 3));
+  }
+  for (int i = b0 + 4 * nq + threadIdx.x; i < i1; i += blockDim.x)
+    g[i] = val(i);
+}
+
+// the byte buffer of each seat (blockIdx.y), 16 bytes a thread; PAD: a
+// row's last partial byte padded with ones (JPEG)
+template <bool PAD>
+__global__ void __launch_bounds__(256)
+stream_bytes_kernel(const unsigned* __restrict__ words,
+                    const int* __restrict__ total_bits,
+                    int* __restrict__ byte_lens, int* __restrict__ flags,
+                    int R, int e_cap, int w_cap, int out_cap,
+                    uint8_t* __restrict__ data) {
   extern __shared__ long long starts[];   // R + 1 (last: the total)
+  // PAD: then the rows' bit totals, R ints
+  int* tbits = reinterpret_cast<int*>(starts + R + 1);
+  // launched behind the row kernel: wait for the words to be complete
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   const int seat = blockIdx.y;
   words += static_cast<long long>(seat) * R * w_cap;
   total_bits += static_cast<long long>(seat) * R;
-  data += static_cast<long long>(seat) * out_cap;
   byte_lens += static_cast<long long>(seat) * R;
-  flags += 2 * seat;
-  if (threadIdx.x == 0) {
-    long long acc = 0;
-    for (int k = 0; k < R; k++) {
-      starts[k] = acc;
-      acc += (static_cast<long long>(total_bits[k]) + 7) >> 3;
-    }
-    starts[R] = acc;
+  data += static_cast<long long>(seat) * out_cap;
+  for (int k = threadIdx.x; k < R; k += blockDim.x) {
+    starts[k] = total_bits[k];
+    if constexpr (PAD) tbits[k] = static_cast<int>(starts[k]);
   }
   __syncthreads();
-  if (blockIdx.x == 0) {
-    for (int k = threadIdx.x; k < R; k += blockDim.x)
-      byte_lens[k] = (total_bits[k] + 7) >> 3;
-    if (threadIdx.x == 0 && starts[R] > out_cap) atomicOr(&flags[1], 1);
+  if (threadIdx.x < 32) {
+    // the rows' byte starts; the first block also the seat's byte
+    // lengths (in place of the event counts the row kernel left) and
+    // flags
+    const int lane = threadIdx.x;
+    long long carry = 0;
+    int bad = 0;
+    for (int k0 = 0; k0 < R; k0 += 32) {
+      const int k = k0 + lane;
+      const int tb = k < R ? static_cast<int>(starts[k]) : 0;
+      const int v = (tb + 7) >> 3;
+      const int incl = warp_incl_sum(v, lane);
+      if (k < R) {
+        starts[k] = carry + incl - v;
+        if (blockIdx.x == 0) {
+          bad |= byte_lens[k] > e_cap || tb > w_cap * 32;
+          byte_lens[k] = v;
+        }
+      }
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+    }
+    bad = __any_sync(0xffffffffu, bad);
+    if (lane == 0) {
+      starts[R] = carry;
+      if (blockIdx.x == 0) {
+        flags[2 * seat] = bad;
+        flags[2 * seat + 1] = carry > out_cap;
+      }
+    }
   }
-  const long long j = static_cast<long long>(blockIdx.x) * blockDim.x
-                      + threadIdx.x;
-  if (j >= out_cap) return;
-  uint8_t out = 0;
-  if (j < starts[R]) {
-    int lo = 0, hi = R;                     // first k with starts[k] > j
+  __syncthreads();
+  const long long j0 = (static_cast<long long>(blockIdx.x) * blockDim.x
+                        + threadIdx.x) * 16;
+  if (j0 >= out_cap) return;
+  const long long total = starts[R];
+  const long long B = 4LL * w_cap;
+  auto row_of = [&](long long j) {         // last k with starts[k] <= j
+    int lo = 0, hi = R;
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
       if (starts[mid] <= j) lo = mid + 1; else hi = mid;
     }
-    const int sb = clampi(lo - 1, 0, R - 1);
-    const long long B = 4LL * w_cap;
-    long long local = j - starts[sb];
-    local = local < 0 ? 0 : (local > B - 1 ? B - 1 : local);
-    const unsigned w = words[static_cast<long long>(sb) * w_cap + (local >> 2)];
-    out = static_cast<uint8_t>((w >> (24 - 8 * (local & 3))) & 0xFFu);
-    const int tb = total_bits[sb], rem = tb & 7;
-    if (rem && local == ((static_cast<long long>(tb) + 7) >> 3) - 1)
-      out |= static_cast<uint8_t>((1 << (8 - rem)) - 1);
+    return clampi(lo - 1, 0, R - 1);
+  };
+  unsigned out[4] = {0u, 0u, 0u, 0u};      // little-endian byte order
+  if (j0 < total) {
+    const int k = row_of(j0);
+    const long long local0 = j0 - starts[k];
+    const unsigned* w = words + static_cast<long long>(k) * w_cap;
+    if (j0 + 16 <= starts[k + 1] && local0 >= 0 && local0 + 16 <= B) {
+      // one row, inside its words: five big-endian words, shifted
+      const long long q = local0 >> 2;
+      const int sh = static_cast<int>(local0 & 3) * 8;
+      unsigned v[5];
+#pragma unroll
+      for (int i = 0; i < 4; i++) v[i] = w[q + i];
+      v[4] = sh && q + 4 < w_cap ? w[q + 4] : 0u;
+#pragma unroll
+      for (int i = 0; i < 4; i++)
+        out[i] = __byte_perm(__funnelshift_l(v[i + 1], v[i], sh), 0, 0x0123);
+      if constexpr (PAD) {
+        // the row's last byte is the 16th here (inside its words)
+        const int rem = tbits[k] & 7;
+        if (j0 + 16 == starts[k + 1] && rem)
+          out[3] |= static_cast<unsigned>((1 << (8 - rem)) - 1) << 24;
+      }
+    } else {
+      // across a row's end or past its words: every byte's word first
+      // (rows walked forward from k), then the 16 loads at once
+      long long at[16];
+      int sh[16];
+      int kb = k;
+#pragma unroll
+      for (int b = 0; b < 16; b++) {
+        const long long j = j0 + b;
+        while (kb + 1 < R && starts[kb + 1] <= j) kb++;
+        long long local = j - starts[kb];
+        local = local < 0 ? 0 : (local > B - 1 ? B - 1 : local);
+        at[b] = j < total && j < out_cap
+            ? static_cast<long long>(kb) * w_cap + (local >> 2) : -1;
+        sh[b] = 24 - 8 * static_cast<int>(local & 3);
+        if constexpr (PAD) {
+          // the last byte of a row whose bytes fit its words
+          if (at[b] >= 0 && j == starts[kb + 1] - 1
+              && starts[kb + 1] - starts[kb] <= B) {
+            const int rem = tbits[kb] & 7;
+            if (rem)
+              out[b >> 2] |= static_cast<unsigned>((1 << (8 - rem)) - 1)
+                             << (8 * (b & 3));
+          }
+        }
+      }
+      unsigned wd[16];
+#pragma unroll
+      for (int b = 0; b < 16; b++) wd[b] = at[b] >= 0 ? words[at[b]] : 0u;
+#pragma unroll
+      for (int b = 0; b < 16; b++)
+        out[b >> 2] |= ((wd[b] >> sh[b]) & 0xFFu) << (8 * (b & 3));
+    }
   }
-  data[j] = out;
+  uint8_t* dst = data + j0;
+  if (j0 + 16 <= out_cap && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(out[0], out[1], out[2],
+                                                out[3]);
+  } else {
+    for (int b = 0; b < 16 && j0 + b < out_cap; b++)
+      dst[b] = static_cast<uint8_t>(out[b >> 2] >> (8 * (b & 3)));
+  }
 }
 
-// launch on stream s after the words are complete; R stripes per seat
-inline void launch_concat_bytes(const unsigned* words, const int* total_bits,
-                                int S, int R, int w_cap, int out_cap,
-                                uint8_t* data, int* byte_lens, int* flags,
-                                cudaStream_t s) {
+// the byte stage on stream s behind the row kernel (programmatic
+// dependent launch): S seats of R rows each
+template <bool PAD>
+inline void launch_stream_bytes(const unsigned* words, const int* total_bits,
+                                int* byte_lens, int* flags, int S, int R,
+                                int e_cap, int w_cap, int out_cap,
+                                uint8_t* data, cudaStream_t s) {
   const int threads = 256;
-  const dim3 grid((out_cap + threads - 1) / threads, S);
-  concat_bytes_kernel<<<grid, threads, (R + 1) * sizeof(long long), s>>>(
-      words, total_bits, R, w_cap, out_cap, data, byte_lens, flags);
+  const long long chunks = (static_cast<long long>(out_cap) + 15) / 16;
+  const int starts_bytes = (R + 1) * static_cast<int>(sizeof(long long))
+                           + (PAD ? R * static_cast<int>(sizeof(int)) : 0);
+  if (starts_bytes > 48 * 1024)
+    cudaFuncSetAttribute(stream_bytes_kernel<PAD>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         starts_bytes);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t bcfg = {};
+  bcfg.gridDim = dim3(static_cast<unsigned>(
+      chunks > 0 ? (chunks + threads - 1) / threads : 1), S);
+  bcfg.blockDim = dim3(threads);
+  bcfg.dynamicSmemBytes = starts_bytes;
+  bcfg.stream = s;
+  bcfg.attrs = attr;
+  bcfg.numAttrs = 1;
+  cudaLaunchKernelEx(&bcfg, stream_bytes_kernel<PAD>, words, total_bits,
+                     byte_lens, flags, R, e_cap, w_cap, out_cap, data);
 }
+
+inline int round16(long long x) { return static_cast<int>((x + 15) & ~15LL); }
+
+}  // namespace

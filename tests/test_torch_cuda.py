@@ -42,8 +42,18 @@ views from a stripe boundary, send gates that cut across the stripes,
 the prediction aliasing the reference and separate prediction planes
 with vectors, planes 4 and 1 bytes into their storage, and per-MB QPs
 0 and 51 inside one block; for K10 widths whose rows are not multiples
-of 16 bytes at H <= 96, rows that are, and 3 seats of an odd frame) and
-must match it exactly, overflow flags included. Tolerance: 0.
+of 16 bytes at H <= 96, rows that are, and 3 seats of an odd frame; for
+K9 made-up slot events: dense stripes on the largest cluster, their
+blocks' words past their shared buffers (one with nbits too large for
+shared memory), 300 stripes on one block each,
+64 stripes of 2880 scan blocks on clusters that stream their payloads
+through two buffers, a stripe with no bits, totals that end on a byte
+and off one, out_caps at the total, one byte under and not multiples of
+16, a noise frame at quality 100 at 4:2:0 and 4:4:4, a payload off 16
+bytes, which is refused, and its seat entry at 8 seats; for K15 13 MBs a row, bands as views from a stripe
+boundary, send gates across the stripes, zero motion and vectors, and
+QPs 0 and 51 at 6 and 13 MBs a row) and must match it exactly, overflow
+flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -408,15 +418,92 @@ def test_jpeg_events(dev, geom):
           JE.jpeg_events_plain(y, *planes[1:], scan, S))
 
 
-@pytest.mark.parametrize("geom", JPEG_GEOMS)
+#: K9 also on made-up slot events: ("events", stripes, scan blocks a
+#: stripe, kind). A dense stripe has a codeword of 18..27 bits in every
+#: slot: one of 960 scan blocks takes the largest cluster (16 blocks),
+#: each block's words past its 2048-word shared buffer (asserted below
+#: for the block of the fewest scan blocks it can get); one of 30000
+#: does the same with nbits too large for a block's shared memory, read
+#: from device memory; 300 stripes of 8 take one block a stripe; 64
+#: stripes of 2880 (the 1080p stripe, several waves as with seats) take
+#: 6 blocks a stripe, each streaming its payloads through two buffers;
+#: "empty" has a stripe with no bits; "ends" a stripe whose bits end on a
+#: byte boundary and one whose bits do not; ("noise", subsampling): K7
+#: and K8 on a 640x64 noise frame at quality 100, inside w_cap
+PACK_CASES = JPEG_GEOMS + [("events", 1, 960, "dense"),
+                           ("events", 1, 30000, "dense"),
+                           ("events", 300, 8, "sparse"),
+                           ("events", 64, 2880, "sparse"),
+                           ("events", 3, 40, "empty"),
+                           ("events", 2, 37, "ends"),
+                           ("noise", "420"), ("noise", "444")]
+
+
+def _pack_events(dev, S, m, kind, seed=5):
+    """(payload, nbits) of S stripes of m scan blocks: codewords of 0..27
+    bits, 18..27 in every slot where ``kind`` is "dense" (a payload never
+    wider than its bits, as K8 makes them)."""
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(18 if kind == "dense" else 0, 28, (S, m, 64))
+    if kind != "dense":
+        nb[rng.random((S, m, 64)) < 0.8] = 0
+    if kind == "empty":
+        nb[1] = 0
+    if kind == "ends":
+        for s, want in ((0, 0), (1, 3)):
+            free = np.flatnonzero(nb[s].reshape(-1) == 0)
+            add = (want - int(nb[s].sum())) % 8
+            if add:
+                nb[s].reshape(-1)[free[0]] = add
+            assert int(nb[s].sum()) % 8 == want
+    pay = rng.integers(0, 1 << 31, (S, m, 64)) & ((1 << nb) - 1)
+    return (torch.as_tensor(pay.astype(np.int32), device=dev),
+            torch.as_tensor(nb.astype(np.uint8), device=dev))
+
+
+@pytest.mark.parametrize("geom", PACK_CASES)
 def test_jpeg_pack(dev, geom):
-    H, W, sh, sub = geom
-    S, _, _, _, planes, scan = _jpeg_stage(dev, H, W, sh, sub)
-    ev = JE.jpeg_events_plain(*planes, scan, S)
-    m = scan.shape[1]
-    for e_cap, w_cap, out_cap in ((m * 64, sh * W // 2, 1 << 16),
-                                  (m * 64, 16, 1 << 16),
-                                  (100, sh * W // 2, 64)):
+    """K9 against plain at roomy caps, at a w_cap the stripes' bits
+    overrun (their bytes past their 4 * w_cap), at an e_cap and out_cap
+    under the events and bytes, and (made-up events) at out_caps that are
+    not multiples of 16; the noise cases at roomy caps."""
+    if geom[0] == "noise":
+        H, W, sh, sub = 64, 640, 64, geom[1]
+        frame = torch.as_tensor(np.random.default_rng(9).integers(
+            0, 256, (H, W, 3), dtype=np.uint8), device=dev)
+        tab = torch.zeros((1,), dtype=torch.int32, device=dev)
+        planes = JPL.jpeg_forward_plain(frame, torch.zeros_like(frame), tab,
+                                        _qtables(dev, 100, 100), sub)
+        scan = JE.scan_maps(JE.scan_layout(sh // 8, W // 8, sub), dev)
+        ev = JE.jpeg_events_plain(*planes, scan, 1)
+        m = scan.shape[1]
+        w_cap = 64 * m * 27 // 32 + 1
+        assert int(ev[1].to(torch.int64).sum()) > 8 * 65536
+        caps = ((m * 64, w_cap, 4 * w_cap),)
+    elif geom[0] == "events":
+        _, S, m, kind = geom
+        ev = _pack_events(dev, S, m, kind)
+        if kind == "dense":
+            # a cluster has at most 16 blocks, so a block holds at least
+            # m // 16 scan blocks: more bits than its shared words hold
+            assert int(ev[1][0, :m // 16].to(torch.int64).sum()) \
+                > 32 * (2048 - 1)
+        w_big = 64 * m * 27 // 32 + 1
+        total = int((ev[1].to(torch.int64).sum(dim=(1, 2)) + 7).div(
+            8, rounding_mode="floor").sum())
+        caps = ((m * 64, w_big, 4 * S * w_big + 13),
+                (m * 64, w_big, total),
+                (m * 64, w_big, total - 1),
+                (m * 64, 16, total + 5),
+                (m * 8, w_big // 2, 1000))
+    else:
+        H, W, sh, sub = geom
+        S, _, _, _, planes, scan = _jpeg_stage(dev, H, W, sh, sub)
+        ev = JE.jpeg_events_plain(*planes, scan, S)
+        m = scan.shape[1]
+        caps = ((m * 64, sh * W // 2, 1 << 16), (m * 64, 16, 1 << 16),
+                (100, sh * W // 2, 64))
+    for e_cap, w_cap, out_cap in caps:
         args = (*ev, e_cap, w_cap, out_cap)
         _same(JPP.jpeg_pack(*args), JPP.jpeg_pack_plain(*args))
 
@@ -611,35 +698,66 @@ def test_csc444_on_every_byte_triple(dev):
           list(H4.csc444_damage_plain(rgb, pp, 16)) + [pp])
 
 
-def _p444_call(p_fn, sel, planes, qp, send_rows, ref, cands, win):
+def _p444_call(p_fn, sel, planes, qp, send_rows, ref, cands, win,
+               rows=None):
+    """K15 (kernel or plain) with the prediction of K5's 4:4:4 entry
+    (zero motion: the reference planes themselves, updated in place);
+    ``rows`` (a slice of MB rows) codes that band only, every plane, the
+    prediction and the reference handed over as views, as the band step
+    does."""
     if cands is None:
-        return p_fn(*planes, qp, send_rows, *ref, None, *ref)
-    *pred, mv = sel(planes[0], *ref, qp, cands, win)
+        pred, mv = ref, None
+    else:
+        *pred, mv = sel(planes[0], *ref, qp, cands, win)
+    if rows is not None:
+        def band(ts):
+            return [t[16 * rows.start:16 * rows.stop] for t in ts]
+        planes, pred, ref = band(planes), band(pred), band(ref)
+        qp, send_rows = qp[rows], send_rows[rows]
+        mv = None if mv is None else mv[rows]
     return p_fn(*planes, qp, send_rows, *pred, mv, *ref)
 
 
-@pytest.mark.parametrize("geom", GEOMS)
-@pytest.mark.parametrize("mode", ["i", "p0", "p"])
+#: K15 also at 13 MBs a row (not a multiple of the 4 MBs a block takes:
+#: its kernel for any shape) and at 8 (whole blocks on 16-byte
+#: boundaries)
+P444_GEOMS = GEOMS + [(64, 208, 32), (64, 128, 32)]
+
+
+@pytest.mark.parametrize("geom", P444_GEOMS)
+@pytest.mark.parametrize("mode", ["i", "p0", "p", "p0_rows", "p_rows",
+                                  "p0_band", "p_band"])
 def test_mb_encode444(dev, geom, mode):
+    """K14 / K15 against plain: I, P with zero motion (the prediction is
+    the reference, rewritten in place) and with K5's prediction; ``_rows``
+    sends MB rows in a pattern that cuts across the stripes, ``_band``
+    codes the MB rows of the second stripe on (views from a stripe
+    boundary)."""
     S, rps, planes, qp, send, ref, _ = _stage444(dev, *geom)
     if mode == "i":
         base = [torch.zeros_like(p) for p in planes]
     else:
         base = [p.clone() for p in ref]
-        planes = tuple(255 - p for p in planes) if mode == "p0" else tuple(
-            torch.roll(p, (-2, 1), (0, 1)) for p in planes)
+        planes = tuple(255 - p for p in planes) if mode.startswith("p0") \
+            else tuple(torch.roll(p, (-2, 1), (0, 1)) for p in planes)
     kref = [b.clone() for b in base]
     pref = [b.clone() for b in base]
     if mode == "i":
         ko = H4.mb_encode_i444(*planes, qp, send, rps, *kref)
         po = H4.mb_encode_i444_plain(*planes, qp, send, rps, *pref)
     else:
-        cands = None if mode == "p0" else TE.scroll_candidates(4, 2)
+        cands = None if mode.startswith("p0") else TE.scroll_candidates(4, 2)
+        R = geom[0] // 16
         send_rows = send.repeat_interleave(rps)
+        if mode.endswith("_rows"):
+            send_rows = torch.tensor([1, 0, 0, 1, 1, 0][:R] * 2,
+                                     dtype=torch.int32, device=dev)[:R]
+        rows = slice(rps if S > 1 else 0, R) if mode.endswith("_band") \
+            else None
         ko = _p444_call(H4.mb_encode_p444, TE.motion_select444, planes, qp,
-                        send_rows, kref, cands, 16 * rps)
+                        send_rows, kref, cands, 16 * rps, rows)
         po = _p444_call(H4.mb_encode_p444_plain, TE.motion_select444_plain,
-                        planes, qp, send_rows, pref, cands, 16 * rps)
+                        planes, qp, send_rows, pref, cands, 16 * rps, rows)
     _same(list(ko) + kref, list(po) + pref)
 
 
@@ -682,17 +800,20 @@ def test_cavlc444_and_pack(dev, geom):
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_chain444_on_noise_at_random_qp(dev, seed):
-    """Noise frames at per-row qp drawn from 0..51, I then P with
-    motion: every 4:4:4 stage's kernel output equals the plain
-    version's."""
-    H, W, sh = 64, 96, 32
+@pytest.mark.parametrize("W", [96, 208])
+def test_chain444_on_noise_at_random_qp(dev, seed, W):
+    """Noise frames at per-row qp drawn from 0..51 (the first two rows at
+    0 and 51), I then P with motion, 6 and 13 MBs a row: every 4:4:4
+    stage's kernel output equals the plain version's."""
+    H, sh = 64, 32
     S, rps, R, M = H // sh, sh // 16, H // 16, W // 16
     rng = np.random.default_rng(200 + seed)
     f0, f1 = (torch.as_tensor(rng.integers(0, 256, (H, W, 3),
                                            dtype=np.uint8), device=dev)
               for _ in range(2))
-    qp = torch.as_tensor(rng.integers(0, 52, R).astype(np.int32), device=dev)
+    qps = rng.integers(0, 52, R).astype(np.int32)
+    qps[:2] = (0, 51)
+    qp = torch.as_tensor(qps, device=dev)
     send = torch.ones((S,), dtype=torch.int32, device=dev)
     ref = [torch.zeros((H, W), dtype=torch.uint8, device=dev)
            for _ in range(3)]
@@ -832,7 +953,7 @@ def test_pack_stream_seats_at_444_slot_counts(dev, n_seats, intra):
 
 
 @pytest.mark.parametrize("geom", JPEG_GEOMS)
-@pytest.mark.parametrize("n_seats", [1, 3])
+@pytest.mark.parametrize("n_seats", [1, 3, 8])
 def test_jpeg_pack_seats(dev, geom, n_seats):
     H, W, sh, sub = geom
     evs = []
@@ -1640,6 +1761,16 @@ def test_k16_bands_as_views(dev, rows, W, intra):
     band = slice(1, 1 + rows)
     ev = _k16_same(lv[band], cbp[band], intra)
     _same(ev, [t[band] for t in whole])
+
+
+def test_k9_refuses_misaligned_payload(dev):
+    """16-byte payload pieces: a payload off a 16-byte boundary raises."""
+    pay, nb = _pack_events(dev, 2, 8, "sparse")
+    flat = torch.zeros(pay.numel() + 4, dtype=torch.int32, device=dev)
+    off = flat[1:1 + pay.numel()].view(pay.shape)
+    off.copy_(pay)
+    with pytest.raises(RuntimeError, match="jpeg_pack"):
+        JPP.jpeg_pack(off, nb, 512, 64, 4096)
 
 
 def test_k16_refuses_misaligned_levels(dev):
