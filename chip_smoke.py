@@ -100,8 +100,15 @@ card's write rate under the same protocol, a yardstick); K9 at 1080p at
 the stock and twice the stock caps and its seat entry at 1, 2, 4 and 8
 seats; K15 at 1080p, with zero motion and on 4:4:4 bands of 4 and 16
 rows (views at a stripe boundary, each equal to the plain version,
-reference planes included) (the "K3 / K4 / K16 / K5 / K19 / K2-P / K10
-/ K9 / K15 timing points" line).
+reference planes included); K1 at 1080p, on an idle frame (prev equal
+to the frame) and on bands of 4 and 16 rows of a scrolled frame (views
+at a stripe boundary, one stripe), its bound counted from the bytes it
+must move on the run's data (the 16-byte pieces of prev that differ, not
+all of prev; the all-bytes bound printed beside it), and a
+torch.profiler trace showing that one K1 launch is one device
+operation; K7 at 1080p at 4:2:0 and 4:4:4 and on the stacked frame of 4
+seats, each equal to the plain version (the "K3 / K4 / K16 / K5 / K19 /
+K2-P / K10 / K9 / K15 / K1 / K7 timing points" line).
 The main path's three step shapes (stock I, full-frame P band,
 one-stripe P band) are timed on the device between CUDA events, the
 host's enqueue hidden behind a spin kernel, for the default session
@@ -623,8 +630,8 @@ def bound_ms(by: int, ops: int) -> float:
     return max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
 
 
-#: K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 timing points beyond
-#: the kernels line:
+#: K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 timing points
+#: beyond the kernels line:
 #: shape -> record
 POINTS: dict = {}
 
@@ -709,6 +716,77 @@ def p_coder_points(planes, qp, send_rows, pred, mv, i_ref, rps: int,
               ms, by, ops * n)
 
 
+def k1_bytes(frame, prev, outs) -> int:
+    """The bytes K1 must move on these inputs: the frame and prev read,
+    Y, U, V and the flags written, and the 16-byte pieces of prev that
+    differ from the frame (its rows are whole 16-byte pieces at the
+    shapes timed here)."""
+    pieces = int((frame.reshape(-1, 16) != prev.reshape(-1, 16))
+                 .any(dim=1).sum())
+    return nbytes(frame, prev, *outs) + 16 * pieces
+
+
+def k1_points(f1, f0, S: int, rps: int, flush, f2s):
+    """K1 at 1080p (f1 over prev f0), on an idle frame (prev == frame),
+    and on bands of ``rps`` and ``4 * rps`` MB rows of a scrolled frame
+    (views at a stripe boundary, one stripe, as the band step hands them
+    over), each equal to the plain version (tolerance 0, prev included),
+    timed as timing points with prev restored, untimed, before each call.
+    -> (1080p ms, plain ms, bytes) for the kernels line."""
+    R = f1.shape[0] // 16
+    r0 = (R // 2) // rps * rps
+    cases = [("1080p", f1, f0, S), ("idle", f1, f1, S)]
+    cases += [(f"band{n}", f2s.narrow(0, 16 * r0, 16 * n),
+               f1.narrow(0, 16 * r0, 16 * n), 1) for n in (rps, 4 * rps)]
+    rec = None
+    for tag, frame, base, n_str in cases:
+        pk, pp = base.clone(), base.clone()
+        ko = HP.csc420_damage(frame, pk, n_str)
+        err = max_abs_err(list(ko) + [pk],
+                          list(HP.csc420_damage_plain(frame, pp, n_str))
+                          + [pp])
+        check(err == 0, f"csc420_damage ({tag}) differs from plain "
+              f"(err {err})")
+        if tag == "idle":
+            check(int(ko[3].sum()) == 0, "K1 flagged an idle frame")
+        prev = base.clone()
+        ms = time_fn(lambda: HP.csc420_damage(frame, prev, n_str), 20,
+                     restore=lambda: prev.copy_(base), flush=flush,
+                     hide_launch=True)
+        pms = time_fn(lambda: HP.csc420_damage_plain(frame, prev, n_str), 3,
+                      restore=lambda: prev.copy_(base))
+        by = k1_bytes(frame, base, ko)
+        point(f"csc420_damage {tag}", ms, by,
+              40 * (frame.shape[0] * frame.shape[1] // 4), pms)
+        if tag == "1080p":
+            rec = (ms, pms, by)
+    return rec
+
+
+def k1_device_ops(frame, prev, S: int, launches: int = 4) -> list:
+    """The names of the device operations of ``launches`` K1 launches,
+    from a torch.profiler trace (a memset would show beside each kernel).
+    A trace that holds no device operation at all is taken again, up to
+    three more times: the profiler's device tracing, first started here,
+    has come up empty on the card."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    HP.csc420_damage(frame, prev, S)
+    torch.cuda.synchronize()
+    ops = []
+    for _ in range(4):
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                HP.csc420_damage(frame, prev, S)
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    return ops
+
+
 def kernel_checks(frames, sess, grown) -> dict:
     """Each kernel against its plain version at the main path's 1080p
     shapes, tolerance 0, then timed. ``sess`` holds the stock buffer
@@ -726,7 +804,8 @@ def kernel_checks(frames, sess, grown) -> dict:
     f0, f1 = (torch.as_tensor(f).to(dev) for f in frames[:2])
     f2s = torch.roll(f1, -5, 0)                 # f1 scrolled by 5 rows
 
-    # K1: csc420_damage (frame f1 against prev f0: some stripes damaged)
+    # K1: csc420_damage (frame f1 against prev f0: some stripes damaged),
+    # then its timing points
     pk, pp = f0.clone(), f0.clone()
     ko = HP.csc420_damage(f1, pk, S)
     po = HP.csc420_damage_plain(f1, pp, S)
@@ -735,15 +814,20 @@ def kernel_checks(frames, sess, grown) -> dict:
     check(0 < int(ko[3].sum()) < S, "K1 check frame should damage some "
           "stripes and not others")
     y, u, v = ko[:3]
-    prev = f0.clone()
-    ms = time_fn(lambda: HP.csc420_damage(f1, prev, S), 20,
-                 restore=lambda: prev.copy_(f0), flush=flush,
-                 hide_launch=True)
-    pms = time_fn(lambda: HP.csc420_damage_plain(f1, prev, S), 3,
-                  restore=lambda: prev.copy_(f0))
-    by = nbytes(f1, prev, prev, y, u, v, ko[3])
+    ms, pms, by = k1_points(f1, f0, S, rps, flush, f2s)
     ops = 40 * (g.height * g.width // 4)          # ~40 flops per quad
     out["csc420_damage"] = (err, ms, pms, by, ops, None)
+    print(f"  csc420_damage bound: {bound_ms(by, ops):.4f} ms (the bytes it "
+          f"must move on this run's data: frame and prev read, Y/U/V and the "
+          f"flags written, and the 16-byte pieces of prev that differ); "
+          f"all-bytes bound {bound_ms(nbytes(f1, pk, pk, *ko), ops):.4f} ms")
+    n_k1 = 4
+    dops = k1_device_ops(f1, f0.clone(), S, n_k1)
+    print(f"K1 device operations per launch (torch.profiler, {n_k1} "
+          f"launches traced): {len(dops) / n_k1:g} "
+          f"{json.dumps(sorted(set(dops)))}")
+    check(len(dops) == n_k1 and len(set(dops)) == 1,
+          f"{n_k1} K1 launches made {len(dops)} device operations")
 
     # K2: both entries; every other stripe sent, so the gate shows. P
     # codes frame f2 against the I recon of f1 with K5's prediction
@@ -1528,6 +1612,33 @@ def check_jpeg_log(log, seq, sess) -> None:
           "the quality-change frame lost its dispatch tables")
 
 
+def k7_point(name: str, frame, base, tab, qt, sub: str, flush):
+    """K7 on ``frame`` over prev ``base`` (restored, untimed, before each
+    call), equal to its plain version (tolerance 0, prev included), timed
+    as a timing point. -> (ms, plain ms, bytes, operations)."""
+    pk, pp = base.clone(), base.clone()
+    ko = JPL.jpeg_forward(frame, pk, tab, qt, sub)
+    err = max_abs_err(list(ko) + [pk],
+                      list(JPL.jpeg_forward_plain(frame, pp, tab, qt, sub))
+                      + [pp])
+    check(err == 0, f"{name} differs from plain (err {err})")
+    prev = base.clone()
+    ms = time_fn(lambda: JPL.jpeg_forward(frame, prev, tab, qt, sub), 20,
+                 restore=lambda: prev.copy_(base), flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: JPL.jpeg_forward_plain(frame, prev, tab, qt, sub),
+                  3)
+    n_blocks = sum(p.shape[0] for p in ko)
+    n_chroma_px = ko[1].shape[0] * 64 * 2
+    # two 8-term DCT passes (2 flops a multiply-add) and a divide, round
+    # and add per coefficient; ~15 flops of CSC a pixel; 4 per chroma mean
+    ops = (n_blocks * 64 * (2 * 8 * 2 + 3) + 15 * frame.numel() // 3
+           + (4 * n_chroma_px if sub == "420" else 0))
+    by = nbytes(frame, tab, qt, *ko, prev)
+    point(name, ms, by, ops, pms)
+    return ms, pms, by, ops
+
+
 def jpeg_kernel_checks(frames, sess) -> dict:
     """K6 at stripe granularity and K7-K9 against their plain versions at
     the 1080p JPEG path's shapes (tolerance 0), then timed. ``sess`` holds
@@ -1565,18 +1676,15 @@ def jpeg_kernel_checks(frames, sess) -> dict:
         po = JPL.jpeg_forward_plain(f1, pp, tab, tables, sub)
         err = max_abs_err(list(ko) + [pk], list(po) + [pp])
         check(err == 0, f"jpeg_forward differs from plain (err {err})")
-    prev = f0.clone()
-    ms = time_fn(lambda: JPL.jpeg_forward(f1, prev, tab, qt, sub), 20,
-                 flush=flush, hide_launch=True)
-    pms = time_fn(lambda: JPL.jpeg_forward_plain(f1, prev, tab, qt, sub), 3)
-    n_blocks = sum(p.shape[0] for p in ko)
-    n_chroma_px = ko[1].shape[0] * 64 * 2
-    # two 8-term DCT passes (2 flops a multiply-add) and a divide, round
-    # and add per coefficient; ~15 flops of CSC a pixel; 4 per chroma mean
-    ops = (n_blocks * 64 * (2 * 8 * 2 + 3) + 15 * f1.numel() // 3
-           + (4 * n_chroma_px if sub == "420" else 0))
-    out["jpeg_forward"] = (err, ms, pms, nbytes(f1, tab, qt, *ko, prev), ops,
-                           None)
+    ms, pms, by, ops = k7_point("jpeg_forward 1080p", f1, f0, tab, qt, sub,
+                                flush)
+    out["jpeg_forward"] = (err, ms, pms, by, ops, None)
+    # 4:4:4, and the seat step's stacked frame of 4 seats (4:2:0)
+    k7_point("jpeg_forward 1080p 4:4:4", f1, f0, tab, qt, "444", flush)
+    n = SEATS
+    stack = torch.cat([torch.roll(f1, 37 * k, 1) for k in range(n)])
+    k7_point(f"jpeg_forward seats S={n}", stack, torch.cat([f0] * n),
+             tab.repeat(n), qt, sub, flush)
 
     # K8 on K7's coefficients
     scan = sess._scan
@@ -2974,8 +3082,8 @@ def main() -> int:
               f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
-    print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 timing points "
-          "(ms between "
+    print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 timing "
+          "points (ms between "
           "CUDA events after an L2 flush, median of 20; bound and plain ms "
           "as in the kernels line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")

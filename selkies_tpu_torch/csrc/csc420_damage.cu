@@ -5,80 +5,233 @@
 // selkies_tpu/ops/h264_planes.py:rgb_to_yuv420, and the damage compare /
 // prev_out copy of selkies_tpu/engine/h264_encoder.py:build_h264_step_fn.
 //
-// Bound on the H100: bytes. It reads the frame and prev (2 x 6.27 MB at
-// 1920x1088) and writes prev, Y, U and V; the arithmetic is ~30 flops per
-// pixel. Design: one thread per 2x2 pixel quad, so the 4:2:0 mean needs no
-// exchange between threads; a block covers part of one quad row (one
-// stripe), ORs its threads' damage with __syncthreads_or and issues a
-// single atomicOr, so the flag costs a handful of atomics per stripe.
-// Float order is pinned with __fmul_rn / __fadd_rn / __fmaf_rn (no
-// contraction; -fmad=false too) to the order XLA:CPU gives the reference:
-// Y and Cb as ((r*m0 + g*m1) + b*m2) + off, Cr as
-// fma(b, m2, fma(g, m1, r*m0)) + off, chroma mean ((a00+a01)+(a10+a11))*.25,
-// then rintf (half-even) and clamp.
-#include "h264_common.cuh"
+// Bound on the H100: bytes. It must read the frame and prev (2 x 6.27 MB
+// at 1920x1088) and write Y, U and V (3.13 MB) and the pieces of prev
+// that differ; the arithmetic is ~30 instructions a pixel (~2 us of issue
+// over the card at 1080p).
+// Design: a thread owns 16 pixels of one row of a row pair, its partner
+// (the neighbouring lane) the same 16 of the other row. It reads them as
+// three 16-byte vectors of the frame and three of prev, stores back only
+// the prev vectors that differ (prev ends equal to the frame either way),
+// computes its 16 Y (one 16-byte store) and the horizontal pair sums of
+// Cb and Cr in registers, and trades one of them with its partner by
+// shuffle: the top row's thread stores the 8 U of the pair (8 bytes), the
+// bottom row's the 8 V. A stripe takes as many blocks of 128 threads as
+// its rows need, so a one-stripe band (the band step's views, up to the
+// whole frame) spreads over the card like a full frame. Each block ORs its
+// damage with __syncthreads_or and adds it to the stripe's ticket with one
+// 64-bit atomic (blocks done in the low word, damaged blocks in the high
+// word); the add returns the counts of the blocks before it, so the last
+// block knows the flag without any other memory being ordered, stores it
+// with a plain store and puts the ticket back to 0: a launch is one device
+// operation (no memset). The tickets live in device memory of this
+// module, so launches are put in one order across streams: a launch on
+// another stream than the one before waits for the event that one
+// recorded. Rows that are not 16-byte aligned (W % 16, or a base off 16
+// bytes) take a second instantiation the host picks, with byte loads and
+// stores. Float order: see csc_rows.cuh; the chroma mean is
+// ((a00 + a01) + (a10 + a11)) * 0.25, then rintf (half-even) and clamp.
+#include <mutex>
 
-__device__ __forceinline__ uint8_t to_u8(float x) {
-  float r = rintf(x);
-  return static_cast<uint8_t>(r < 0.f ? 0.f : (r > 255.f ? 255.f : r));
-}
+#include "csc_rows.cuh"
 
-__global__ void csc420_damage_kernel(const uint8_t* __restrict__ frame,
-                                     uint8_t* __restrict__ prev,
-                                     uint8_t* __restrict__ y,
-                                     uint8_t* __restrict__ u,
-                                     uint8_t* __restrict__ v,
-                                     int* __restrict__ damage, int W,
-                                     int stripe_h) {
-  const int W2 = W / 2;
-  const int qx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int qy = blockIdx.y;
-  int diff = 0;
-  if (qx < W2) {
-    float cb[4], cr[4];
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kMaxStripes = 1 << 16;   // stripes a launch at most
+constexpr int kMaxBlocks = 1 << 20;    // blocks a stripe at most
+
+// a ticket a stripe, 0 between launches: the blocks that finished (low
+// 32 bits) and those of them that found damage (high 32 bits)
+__device__ unsigned long long k1_ticket[kMaxStripes];
+
+// a row of 16 pixels (12 words): Y into 4 words, the pair sums
+// a[2k] + a[2k+1] of Cb and Cr
+__device__ __forceinline__ void row16(const unsigned (&w)[12],
+                                      unsigned (&yw)[4], float (&hcb)[8],
+                                      float (&hcr)[8]) {
+  unsigned yb[16];
 #pragma unroll
-    for (int k = 0; k < 4; k++) {
-      const int py = 2 * qy + (k >> 1), px = 2 * qx + (k & 1);
-      const size_t o = (static_cast<size_t>(py) * W + px) * 3;
-      const uint8_t R = frame[o], G = frame[o + 1], B = frame[o + 2];
-      diff |= (R != prev[o]) | (G != prev[o + 1]) | (B != prev[o + 2]);
-      prev[o] = R;
-      prev[o + 1] = G;
-      prev[o + 2] = B;
-      const float r = R, g = G, b = B;
-      const float yy = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(r, K_CSC[0]), __fmul_rn(g, K_CSC[1])),
-                    __fmul_rn(b, K_CSC[2])),
-          0.0f);
-      y[static_cast<size_t>(py) * W + px] = to_u8(yy);
-      cb[k] = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(r, K_CSC[3]), __fmul_rn(g, K_CSC[4])),
-                    __fmul_rn(b, K_CSC[5])),
-          128.0f);
-      cr[k] = __fadd_rn(
-          __fmaf_rn(b, K_CSC[8], __fmaf_rn(g, K_CSC[7], __fmul_rn(r, K_CSC[6]))),
-          128.0f);
-    }
-    const size_t oc = static_cast<size_t>(qy) * W2 + qx;
-    u[oc] = to_u8(
-        __fmul_rn(__fadd_rn(__fadd_rn(cb[0], cb[1]), __fadd_rn(cb[2], cb[3])),
-                  0.25f));
-    v[oc] = to_u8(
-        __fmul_rn(__fadd_rn(__fadd_rn(cr[0], cr[1]), __fadd_rn(cr[2], cr[3])),
-                  0.25f));
+  for (int k = 0; k < 8; k++) {
+    float r0, g0, b0, r1, g1, b1;
+    run_rgb(w, 2 * k, r0, g0, b0);
+    run_rgb(w, 2 * k + 1, r1, g1, b1);
+    yb[2 * k] = u8_bits(csc_y(r0, g0, b0));
+    yb[2 * k + 1] = u8_bits(csc_y(r1, g1, b1));
+    hcb[k] = __fadd_rn(csc_cb(r0, g0, b0), csc_cb(r1, g1, b1));
+    hcr[k] = __fadd_rn(csc_cr(r0, g0, b0), csc_cr(r1, g1, b1));
   }
-  if (__syncthreads_or(diff) && threadIdx.x == 0)
-    atomicOr(&damage[(2 * qy) / stripe_h], 1);
+#pragma unroll
+  for (int q = 0; q < 4; q++)
+    yw[q] = pack4(yb[4 * q], yb[4 * q + 1], yb[4 * q + 2], yb[4 * q + 3]);
 }
+
+// the 16 pixels of row py from px0 (n of them valid, 16 on the vector
+// path): prev updated, Y stored, the pair sums -> 1 where prev differed
+template <bool VEC>
+__device__ __forceinline__ int row_run(const uint8_t* __restrict__ frame,
+                                       uint8_t* __restrict__ prev,
+                                       uint8_t* __restrict__ y, int W, int py,
+                                       int px0, int n, float (&hcb)[8],
+                                       float (&hcr)[8]) {
+  const size_t o = (static_cast<size_t>(py) * W + px0) * 3;
+  unsigned w[12];
+  int diff = 0;
+  if (VEC) {
+    load_run<16>(frame + o, w);
+    uint4 p[3];
+#pragma unroll
+    for (int k = 0; k < 3; k++)
+      p[k] = reinterpret_cast<const uint4*>(prev + o)[k];
+#pragma unroll
+    for (int k = 0; k < 3; k++) {
+      const uint4 f = make_uint4(w[4 * k], w[4 * k + 1], w[4 * k + 2],
+                                 w[4 * k + 3]);
+      if ((f.x ^ p[k].x) | (f.y ^ p[k].y) | (f.z ^ p[k].z) | (f.w ^ p[k].w)) {
+        reinterpret_cast<uint4*>(prev + o)[k] = f;
+        diff = 1;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 12; q++) w[q] = 0u;
+#pragma unroll
+    for (int b = 0; b < 48; b++) {
+      if (b < 3 * n) {
+        const uint8_t f = frame[o + b];
+        if (f != prev[o + b]) {
+          prev[o + b] = f;
+          diff = 1;
+        }
+        w[b >> 2] |= static_cast<unsigned>(f) << (8 * (b & 3));
+      }
+    }
+  }
+  unsigned yw[4];
+  row16(w, yw, hcb, hcr);
+  uint8_t* yr = y + static_cast<size_t>(py) * W + px0;
+  if (VEC) {
+    *reinterpret_cast<uint4*>(yr) = make_uint4(yw[0], yw[1], yw[2], yw[3]);
+  } else {
+#pragma unroll
+    for (int p = 0; p < 16; p++)
+      if (p < n) yr[p] = static_cast<uint8_t>(yw[p >> 2] >> (8 * (p & 3)));
+  }
+  return diff;
+}
+
+// grid: S stripes x P blocks; a stripe's 2 * (stripe_h / 2) * ceil(W / 16)
+// runs, a thread each (a block loops where a stripe has more runs than its
+// P blocks have threads); run i is row i & 1 of a row pair, so the two
+// rows of a pair are neighbouring lanes
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 4)
+csc420_damage_kernel(const uint8_t* __restrict__ frame,
+                     uint8_t* __restrict__ prev, uint8_t* __restrict__ y,
+                     uint8_t* __restrict__ u, uint8_t* __restrict__ v,
+                     int* __restrict__ damage, int W, int stripe_h, int P) {
+  const int s = blockIdx.x / P, rank = blockIdx.x - s * P;
+  const int per_row = (W + 15) / 16;
+  const int runs = stripe_h * per_row;
+  int diff = 0;
+  for (int i0 = rank * kThreads; i0 < runs; i0 += P * kThreads) {
+    const int i = i0 + threadIdx.x;
+    const bool ok = i < runs;         // even runs: a pair is valid together
+    const int pair = i >> 1, bottom = i & 1;
+    const int rp = pair / per_row, c = pair - rp * per_row;
+    const int py = s * stripe_h + 2 * rp;
+    const int px0 = 16 * c, n = VEC ? 16 : min(16, W - px0);
+    float hb[8], hr[8];
+    if (ok) {
+      diff |= row_run<VEC>(frame, prev, y, W, py + bottom, px0, n, hb, hr);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; k++) hb[k] = hr[k] = 0.0f;
+    }
+    // ((a00 + a01) + (a10 + a11)) * 0.25: the top row stores U, the
+    // bottom row V, each with the other's pair sums
+    unsigned c8[8];
+#pragma unroll
+    for (int k = 0; k < 8; k++) {
+      const float o = __shfl_xor_sync(0xffffffffu, bottom ? hb[k] : hr[k], 1);
+      c8[k] = u8_bits(__fmul_rn(bottom ? __fadd_rn(o, hr[k])
+                                       : __fadd_rn(hb[k], o), 0.25f));
+    }
+    if (ok) {
+      uint8_t* dst = (bottom ? v : u) + static_cast<size_t>(py / 2) * (W / 2)
+                     + px0 / 2;
+      if (VEC) {
+        *reinterpret_cast<uint2*>(dst) =
+            make_uint2(pack4(c8[0], c8[1], c8[2], c8[3]),
+                       pack4(c8[4], c8[5], c8[6], c8[7]));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; k++)
+          if (2 * k < n) dst[k] = static_cast<uint8_t>(c8[k]);
+      }
+    }
+  }
+  // the stripe's last block to finish stores its flag: the ticket's add
+  // returns the counts of the blocks before it, so no other memory needs
+  // ordering; it then leaves the ticket at 0 for the next launch
+  const int any = __syncthreads_or(diff);
+  if (threadIdx.x == 0) {
+    const unsigned long long old =
+        atomicAdd(&k1_ticket[s], 1ull + (any ? 1ull << 32 : 0ull));
+    if (static_cast<int>(old & 0xffffffffu) == P - 1) {
+      damage[s] = (old >> 32) + any > 0;
+      k1_ticket[s] = 0ull;
+    }
+  }
+}
+
+// per device: the event of the last launch and its stream; a launch on
+// another stream waits for that event
+std::mutex order_lock;
+cudaEvent_t last_launch[64];
+cudaStream_t last_stream[64];
+
+}  // namespace
 
 extern "C" int csc420_damage(const uint8_t* frame, uint8_t* prev, uint8_t* y,
                              uint8_t* u, uint8_t* v, int* damage, int H, int W,
                              int stripe_h, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(damage, 0, sizeof(int) * (H / stripe_h), s);
-  const int threads = 256;
-  dim3 grid((W / 2 + threads - 1) / threads, H / 2);
-  csc420_damage_kernel<<<grid, threads, 0, s>>>(frame, prev, y, u, v, damage,
-                                                W, stripe_h);
-  return static_cast<int>(cudaGetLastError());
+  if (H <= 0 || W <= 0 || W % 2 || stripe_h <= 0 || stripe_h % 2
+      || H % stripe_h || H / stripe_h > kMaxStripes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int S = H / stripe_h;
+  const bool vec = W % 16 == 0 && aligned_to(frame, 16)
+                   && aligned_to(prev, 16) && aligned_to(y, 16)
+                   && aligned_to(u, 8) && aligned_to(v, 8);
+  // blocks a stripe: a run (16 pixels of a row) a thread (the blocks
+  // loop past kMaxBlocks)
+  const long long runs = static_cast<long long>(stripe_h) * ((W + 15) / 16);
+  long long P = (runs + kThreads - 1) / kThreads;
+  if (P > kMaxBlocks) P = kMaxBlocks;
+  if (P * S > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  std::lock_guard<std::mutex> hold(order_lock);
+  if (!last_launch[dev]) {
+    const cudaError_t e = cudaEventCreateWithFlags(&last_launch[dev],
+                                                   cudaEventDisableTiming);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (st != last_stream[dev]) {
+    cudaStreamWaitEvent(st, last_launch[dev], 0);
+  }
+  const dim3 grid(static_cast<unsigned>(S * P));
+  if (vec)
+    csc420_damage_kernel<true><<<grid, kThreads, 0, st>>>(
+        frame, prev, y, u, v, damage, W, stripe_h, static_cast<int>(P));
+  else
+    csc420_damage_kernel<false><<<grid, kThreads, 0, st>>>(
+        frame, prev, y, u, v, damage, W, stripe_h, static_cast<int>(P));
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) {
+    cudaEventRecord(last_launch[dev], st);
+    last_stream[dev] = st;
+  }
+  return static_cast<int>(e);
 }

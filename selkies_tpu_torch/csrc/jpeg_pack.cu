@@ -457,15 +457,11 @@ int plan_layout(JpegArgs& a, int P, int budget) {
 
 // n_seats seats of S / n_seats stripes each: words (S, w_cap), total_bits,
 // n_events and byte_lens (S,), data (n_seats, out_cap), flags (n_seats, 2).
-// ``scratch`` is not used (the stripes' sums travel through distributed
-// shared memory).
 extern "C" int jpeg_pack_seats(const int* payload, const uint8_t* nbits,
                                int n_seats, int S, int M, int e_cap,
-                               int w_cap, int out_cap, int* scratch,
-                               int* words, int* total_bits, int* n_events,
-                               uint8_t* data, int* byte_lens, int* flags,
-                               void* stream) {
-  (void)scratch;
+                               int w_cap, int out_cap, int* words,
+                               int* total_bits, int* n_events, uint8_t* data,
+                               int* byte_lens, int* flags, void* stream) {
   if (n_seats <= 0 || n_seats > 65535 || S <= 0 || S % n_seats || M <= 0
       || w_cap <= 0 || out_cap < 0 || M > (1 << 24)
       || static_cast<long long>(S) * kRank > 0x7fffffffLL)
@@ -546,11 +542,10 @@ extern "C" int jpeg_pack_seats(const int* payload, const uint8_t* nbits,
 }
 
 extern "C" int jpeg_pack(const int* payload, const uint8_t* nbits, int S,
-                         int M, int e_cap, int w_cap, int out_cap,
-                         int* scratch, int* words, int* total_bits,
-                         int* n_events, uint8_t* data, int* byte_lens,
-                         int* flags, void* stream) {
+                         int M, int e_cap, int w_cap, int out_cap, int* words,
+                         int* total_bits, int* n_events, uint8_t* data,
+                         int* byte_lens, int* flags, void* stream) {
   return jpeg_pack_seats(payload, nbits, 1, S, M, e_cap, w_cap, out_cap,
-                         scratch, words, total_bits, n_events, data,
-                         byte_lens, flags, stream);
+                         words, total_bits, n_events, data, byte_lens, flags,
+                         stream);
 }

@@ -53,8 +53,8 @@ ENTRIES = {
     "row_damage_probe": [_P] * 3 + [_I] * 2,
     "jpeg_forward": [_P] * 7 + [_I] * 4,
     "jpeg_events": [_P] * 6 + [_I] * 4,
-    "jpeg_pack": [_P] * 2 + [_I] * 5 + [_P] * 7,
-    "jpeg_pack_seats": [_P] * 2 + [_I] * 6 + [_P] * 7,
+    "jpeg_pack": [_P] * 2 + [_I] * 5 + [_P] * 6,
+    "jpeg_pack_seats": [_P] * 2 + [_I] * 6 + [_P] * 6,
     "synthetic_frame": [_P] + [_I] * 3,
     "synthetic_frames": [_P] + [_I] * 4,
     "pad_frame": [_P] * 2 + [_I] * 4,

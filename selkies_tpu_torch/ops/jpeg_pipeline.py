@@ -81,10 +81,8 @@ def _launch_pack(entry: str, n_seats, payload, nbits, e_cap: int,
     data = torch.empty(seats + (out_cap,), dtype=torch.uint8, device=dev)
     byte_lens = torch.empty((S,), dtype=torch.int32, device=dev)
     flags = torch.empty(seats + (2,), dtype=torch.int32, device=dev)
-    # scratch: per-block bit counts and event counts, then their starts
-    scratch = torch.empty((3, S, m), dtype=torch.int32, device=dev)
     _cuda.launch(entry, payload, nbits, *seats, S, m, e_cap, w_cap, out_cap,
-                 scratch, words, total_bits, n_events, data, byte_lens, flags)
+                 words, total_bits, n_events, data, byte_lens, flags)
     return JpegStream(words, total_bits, n_events, data, byte_lens, flags)
 
 

@@ -52,8 +52,17 @@ and off one, out_caps at the total, one byte under and not multiples of
 16, a noise frame at quality 100 at 4:2:0 and 4:4:4, a payload off 16
 bytes, which is refused, and its seat entry at 8 seats; for K15 13 MBs a row, bands as views from a stripe
 boundary, send gates across the stripes, zero motion and vectors, and
-QPs 0 and 51 at 6 and 13 MBs a row) and must match it exactly, overflow
-flags included. Tolerance: 0.
+QPs 0 and 51 at 6 and 13 MBs a row; for K1 even widths off its vector
+path (W = 54, 90, 18, 2), 4- and 16-row band views at a stripe boundary,
+idle frames, one differing byte at the first and the last byte of each
+stripe and of a 16-byte piece, stripes of two rows and stripes over many
+blocks (the whole 1080p frame as one), and 4 stacked seats; for K7 W =
+40 at 4:4:4 and 1920-wide frames of a few MCU rows at both
+subsamplings, widths whose last block of MCUs is partial, per-stripe
+tables with the ulp tables of 1/16, 4 stacked seats, a frame 8 bytes
+into its storage (taken) and one 4 bytes in (refused), and its hoisted
+divide against __fdiv_rn over every mantissa of the dividend) and must
+match it exactly, overflow flags included. Tolerance: 0.
 """
 
 import numpy as np
@@ -119,6 +128,126 @@ def test_csc420_damage(dev, geom):
     pk, pp = f0.clone(), f0.clone()
     _same(list(HP.csc420_damage(f1, pk, H // sh)) + [pk],
           list(HP.csc420_damage_plain(f1, pp, H // sh)) + [pp])
+
+
+def _k1_same(frame, prev, S):
+    """K1 against its plain version on copies of ``prev`` (tolerance 0,
+    prev included) -> the kernel's flags."""
+    pk, pp = prev.clone(), prev.clone()
+    ko = HP.csc420_damage(frame, pk, S)
+    _same(list(ko) + [pk], list(HP.csc420_damage_plain(frame, pp, S)) + [pp])
+    assert torch.equal(pk, frame)
+    return ko[3].cpu().tolist()
+
+
+@pytest.mark.parametrize("W", [54, 90, 18, 2])
+def test_csc420_damage_off_the_vector_path(dev, W):
+    """Even widths whose rows are not whole 16-byte pieces (the byte
+    instantiation), a unit cut at the row's end."""
+    f0, f1 = _frames(dev, 32, W)
+    f1[17, W - 1, 2] ^= 1
+    assert _k1_same(f1, f0, 4) == [1, 1, 1, 0]
+
+
+@pytest.mark.parametrize("rows", [4, 16])
+def test_csc420_damage_on_band_views(dev, rows):
+    """Views of rows at a stripe boundary, one stripe, as the band step
+    hands them over; the rest of prev is untouched."""
+    H, W, y0 = 512, 208, 64
+    f0, f1 = _frames(dev, H, W)
+    f1 = torch.roll(f1, 3, 0)
+    bh = 16 * rows
+    pk, pp = f0.clone(), f0.clone()
+    band = f1.narrow(0, y0, bh)
+    ko = HP.csc420_damage(band, pk.narrow(0, y0, bh), 1)
+    po = HP.csc420_damage_plain(band, pp.narrow(0, y0, bh), 1)
+    _same(list(ko) + [pk], list(po) + [pp])
+    assert ko[3].tolist() == [1]
+    assert torch.equal(pk[:y0], f0[:y0]) and torch.equal(pk[y0 + bh:],
+                                                         f0[y0 + bh:])
+
+
+@pytest.mark.parametrize("W", [208, 54])
+def test_csc420_damage_on_an_idle_frame(dev, W):
+    f0, _ = _frames(dev, 64, W)
+    prev = f0.clone()
+    ko = HP.csc420_damage(f0, prev, 4)
+    assert ko[3].tolist() == [0, 0, 0, 0]
+    assert torch.equal(prev, f0)
+    _k1_same(f0, f0, 4)
+
+
+@pytest.mark.parametrize("W", [1920, 208, 90])
+def test_csc420_damage_one_byte_at_stripe_and_piece_edges(dev, W):
+    """One differing byte at the first and the last byte of each stripe,
+    and at the first and last byte of a 16-byte piece inside one: only
+    that stripe is flagged."""
+    H, sh = 64, 16
+    S = H // sh
+    f0, _ = _frames(dev, H, W)
+    stripe = sh * W * 3
+    spots = []
+    for s in range(S):
+        spots += [s * stripe, (s + 1) * stripe - 1]
+    spots += [stripe + 16 * 37, stripe + 16 * 37 + 15, 2 * stripe + 16 * 5 - 1]
+    for at in spots:
+        f1 = f0.clone()
+        f1.view(-1)[at] ^= 0x80
+        want = [int(s == at // stripe) for s in range(S)]
+        assert _k1_same(f1, f0, S) == want, at
+
+
+@pytest.mark.parametrize("geom", [(64, 208, 2), (32, 1920, 2), (1088, 1920,
+                                                                 1088),
+                                  (256, 1920, 256), (128, 96, 128)])
+def test_csc420_damage_short_and_tall_stripes(dev, geom):
+    """Many short stripes (2 rows: one block each), and stripes over
+    many blocks (up to the whole 1080p frame as one stripe, as the band
+    step hands it over), each flag right."""
+    H, W, sh = geom
+    S = H // sh
+    f0, _ = _frames(dev, H, W)
+    f1 = f0.clone()
+    dirty = list(range(0, S, 3))
+    for s in dirty:
+        f1[s * sh + sh - 1, W // 2, 1] ^= 0x40
+    assert _k1_same(f1, f0, S) == [int(s in dirty) for s in range(S)]
+
+
+def test_csc420_damage_on_stacked_seats(dev):
+    """The seat step's frame: 4 seats stacked, 4 stripes each, seats
+    damaged differently (one idle)."""
+    n, H, W, sh = 4, 64, 208, 16
+    f0, f1 = _frames(dev, n * H, W)
+    f1[H:2 * H] = f0[H:2 * H]
+    f1[3 * H + 40, 7] = 0
+    f0[3 * H + 40, 7] = 1
+    flags = _k1_same(f1, f0, n * H // sh)
+    assert flags[4:8] == [0, 0, 0, 0] and flags[14] == 1
+
+
+def test_csc420_damage_on_two_streams(dev):
+    """Launches alternating between two streams (the stripes' tickets are
+    shared module state, so the second waits for the first): every
+    launch's flags and planes equal the plain version's."""
+    H, W, sh = 128, 208, 16
+    S = H // sh
+    frames = [_frames(dev, H, W) for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for k in range(8):
+        f0, f1 = frames[k % 2]
+        f1 = f1.clone()
+        f1[sh * (k % S)] ^= 1
+        prev = f0.clone()
+        streams[k % 2].wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(streams[k % 2]):
+            outs.append((f1, f0, prev, HP.csc420_damage(f1, prev, S)))
+    torch.cuda.synchronize()
+    for f1, f0, prev, ko in outs:
+        pp = f0.clone()
+        _same(list(ko) + [prev],
+              list(HP.csc420_damage_plain(f1, pp, S)) + [pp])
 
 
 def _p_call(p_fn, planes, qp, send, rps, ref, cands, send_rows=None,
@@ -404,6 +533,146 @@ def test_jpeg_forward(dev, geom, q):
     pk, pp = torch.zeros_like(frame), torch.zeros_like(frame)
     _same(list(JPL.jpeg_forward(frame, pk, tab, qt, sub)) + [pk],
           list(JPL.jpeg_forward_plain(frame, pp, tab, qt, sub)) + [pp])
+
+
+def _k7_same(frame, prev, tab, qt, sub):
+    pk, pp = prev.clone(), prev.clone()
+    _same(list(JPL.jpeg_forward(frame, pk, tab, qt, sub)) + [pk],
+          list(JPL.jpeg_forward_plain(frame, pp, tab, qt, sub)) + [pp])
+
+
+@pytest.mark.parametrize("geom", [(48, 40, 8, "444"), (24, 40, 24, "444"),
+                                  (32, 1920, 16, "420"),
+                                  (48, 1920, 16, "444"),
+                                  (32, 1376, 32, "420"),
+                                  (16, 1352, 8, "444")])
+@pytest.mark.parametrize("q", [(60, 90), "ulp"])
+def test_jpeg_forward_wide_and_unaligned(dev, geom, q):
+    """W = 40 at 4:4:4 (120-byte rows: the 8-byte instantiation), 1920
+    wide at both subsamplings (whole blocks of MCUs), widths whose last
+    block of MCUs is partial; the ulp tables of 1/16."""
+    H, W, sh, sub = geom
+    S = H // sh
+    frame = _jpeg_frame(dev, H, W, 7)
+    tab = torch.as_tensor(np.arange(S) % 2, dtype=torch.int32, device=dev)
+    qt = torch.full((4, 64), 1 / 16, device=dev) if q == "ulp" \
+        else _qtables(dev, *q)
+    _k7_same(frame, torch.zeros_like(frame), tab, qt, sub)
+
+
+@pytest.mark.parametrize("sub", ["420", "444"])
+def test_jpeg_forward_per_stripe_ulp_tables(dev, sub):
+    """Stripes on different tables where one of them is 1/16 (one ulp of
+    a coefficient shows) and the other a real table."""
+    H, W, sh = 64, 1920, 16
+    S = H // sh
+    frame = _jpeg_frame(dev, H, W, 3)
+    qt = _qtables(dev, 60, 90)
+    qt[0] = 1 / 16
+    qt[1] = 1 / 16
+    tab = torch.as_tensor([0, 1, 1, 0], dtype=torch.int32, device=dev)
+    _k7_same(frame, torch.zeros_like(frame), tab, qt, sub)
+
+
+@pytest.mark.parametrize("sub", ["420", "444"])
+def test_jpeg_forward_on_stacked_seats(dev, sub):
+    n, H, W, sh = 4, 64, 208 if sub == "420" else 200, 32
+    frame = torch.cat([_jpeg_frame(dev, H, W, k) for k in range(n)])
+    tab = torch.as_tensor(np.arange(n * H // sh) % 2, dtype=torch.int32,
+                          device=dev)
+    _k7_same(frame, frame.roll(1, 0), tab, _qtables(dev, 40, 95), sub)
+
+
+@pytest.mark.parametrize("sub", ["420", "444"])
+def test_jpeg_forward_off_16_bytes(dev, sub):
+    """A frame and prev 8 bytes into their storage take the 8-byte
+    instantiation; 4 bytes in is refused."""
+    H, W, sh = 32, 64, 16
+    S = H // sh
+    src = _jpeg_frame(dev, H, W, 5)
+    tab = torch.as_tensor([1, 0], dtype=torch.int32, device=dev)
+    qt = _qtables(dev, 60, 90)
+    n = H * W * 3
+    for off, ok in ((8, True), (4, False)):
+        fb = torch.zeros(n + off, dtype=torch.uint8, device=dev)
+        pb = torch.zeros(n + off, dtype=torch.uint8, device=dev)
+        frame = fb[off:].view(H, W, 3)
+        frame.copy_(src)
+        prev = pb[off:].view(H, W, 3)
+        if ok:
+            pp = prev.clone()
+            _same(list(JPL.jpeg_forward(frame, prev, tab, qt, sub)) + [prev],
+                  list(JPL.jpeg_forward_plain(frame, pp, tab, qt, sub))
+                  + [pp])
+        else:
+            with pytest.raises(RuntimeError, match="jpeg_forward"):
+                JPL.jpeg_forward(frame, prev, tab, qt, sub)
+
+
+QUANT_DIV_PROBE = r"""
+#include "quant_div.cuh"
+#include <stdint.h>
+
+__global__ void probe(const float* bs, int nb, const int* exps, int ne,
+                      unsigned long long* bad) {
+  const unsigned m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= (1u << 24)) return;
+  for (int e = 0; e < ne; e++) {
+    const float a = __uint_as_float(((m >> 23) << 31)
+                                    | ((unsigned)(exps[e] + 127) << 23)
+                                    | (m & 0x7fffffu));
+    for (int k = 0; k < nb; k++) {
+      const float b = bs[k];
+      if (!div_moderate(b)) continue;
+      if (__float_as_uint(div_by(a, b, div_recip(b)))
+          != __float_as_uint(__fdiv_rn(a, b)))
+        atomicAdd(bad, 1ull);
+    }
+  }
+}
+
+extern "C" int probe_run(const float* bs, int nb, const int* exps, int ne,
+                         unsigned long long* bad, void* stream) {
+  probe<<<(1 << 24) / 256, 256, 0, (cudaStream_t)stream>>>(bs, nb, exps, ne,
+                                                          bad);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_quant_div_equals_fdiv_rn(dev, tmp_path):
+    """K7's hoisted divide (csrc/quant_div.cuh) against __fdiv_rn, bit
+    for bit, over every sign and mantissa of the dividend at exponents
+    from 2^-72 to 2^13 (the range of the DCT outputs), for every divisor
+    a JPEG table holds at any quality (1..255), 1/16 and 64 random
+    ones."""
+    import ctypes
+    import subprocess
+
+    from selkies_tpu_torch.ops import _cuda
+    src = tmp_path / "probe.cu"
+    src.write_text(QUANT_DIV_PROBE)
+    so = tmp_path / "probe.so"
+    r = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I",
+                        str(_cuda.CSRC), "-o", str(so), str(src)],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.probe_run.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p]
+    rng = np.random.default_rng(16)
+    divisors = np.concatenate([np.arange(1, 256), [1 / 16],
+                               rng.uniform(0.01, 300.0, 64)])
+    bs = torch.as_tensor(divisors.astype(np.float32), device=dev)
+    exps = torch.as_tensor([-72, -45, -20, -7, -1, 0, 3, 7, 10, 13],
+                           dtype=torch.int32, device=dev)
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    rc = lib.probe_run(bs.data_ptr(), bs.numel(), exps.data_ptr(),
+                       exps.numel(), bad.data_ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    assert int(bad.item()) == 0
 
 
 @pytest.mark.parametrize("geom", JPEG_GEOMS)
