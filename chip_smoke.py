@@ -107,8 +107,13 @@ must move on the run's data (the 16-byte pieces of prev that differ, not
 all of prev; the all-bytes bound printed beside it), and a
 torch.profiler trace showing that one K1 launch is one device
 operation; K7 at 1080p at 4:2:0 and 4:4:4 and on the stacked frame of 4
-seats, each equal to the plain version (the "K3 / K4 / K16 / K5 / K19 /
-K2-P / K10 / K9 / K15 / K1 / K7 timing points" line).
+seats, each equal to the plain version; K2-I at 1080p (qp mixed by row,
+every other stripe sent), at qp 0 and 51 and on 4 stacked seats (272 MB
+rows); K6 at 1080p MB rows, at the JPEG step's 17 stripes, on 4 stacked
+seats (68 stripes), on an idle and on a fully damaged frame, each equal
+to the plain version, and a torch.profiler trace showing that one K6
+launch is one device operation (the "K3 / K4 / K16 / K5 / K19 / K2-P /
+K10 / K9 / K15 / K1 / K7 / K2-I / K6 timing points" line).
 The main path's three step shapes (stock I, full-frame P band,
 one-stripe P band) are timed on the device between CUDA events, the
 host's enqueue hidden behind a spin kernel, for the default session
@@ -630,7 +635,8 @@ def bound_ms(by: int, ops: int) -> float:
     return max(by / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
 
 
-#: K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 timing points
+#: K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I / K6
+#: timing points
 #: beyond the kernels line:
 #: shape -> record
 POINTS: dict = {}
@@ -763,28 +769,86 @@ def k1_points(f1, f0, S: int, rps: int, flush, f2s):
     return rec
 
 
-def k1_device_ops(frame, prev, S: int, launches: int = 4) -> list:
-    """The names of the device operations of ``launches`` K1 launches,
-    from a torch.profiler trace (a memset would show beside each kernel).
-    A trace that holds no device operation at all is taken again, up to
-    three more times: the profiler's device tracing, first started here,
-    has come up empty on the card."""
+def device_ops(call, launches: int = 4) -> list:
+    """The names of the device operations of ``launches`` calls of
+    ``call`` (one kernel launch each), from a torch.profiler trace (a
+    memset would show beside a kernel). A trace that holds no device
+    operation at all is taken again, up to three more times: the
+    profiler's device tracing, first started here, has come up empty on
+    the card."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
-    HP.csc420_damage(frame, prev, S)
+    call()
     torch.cuda.synchronize()
     ops = []
     for _ in range(4):
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             for _ in range(launches):
-                HP.csc420_damage(frame, prev, S)
+                call()
             torch.cuda.synchronize()
         ops = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         if ops:
             break
     return ops
+
+
+def k2i_points(planes, qp, send, rps: int, flush, sent_frac: float,
+               seats: int = 4) -> None:
+    """K2-I at qp 0 and 51 on the 1080p planes and on ``seats`` stacked
+    copies of them (qp mixed by row, every other stripe sent), each equal
+    to the plain version (tolerance 0, the whole reference planes
+    included), timed as timing points with the reference restored,
+    untimed, before each call."""
+    stacked = [torch.cat([p] * seats) for p in planes]
+    cases = [(f"qp{q}", planes, torch.full_like(qp, q), send)
+             for q in (0, 51)]
+    cases.append((f"{seats} seats", stacked, qp.repeat(seats),
+                  send.repeat(seats)))
+    for tag, pl, q, sd in cases:
+        zero = [torch.zeros_like(p) for p in pl]
+        kref = [t.clone() for t in zero]
+        pref = [t.clone() for t in zero]
+        ko = HP.mb_encode_i(*pl, q, sd, rps, *kref)
+        po = HP.mb_encode_i_plain(*pl, q, sd, rps, *pref)
+        err = max_abs_err(list(ko) + kref, list(po) + pref)
+        check(err == 0, f"mb_encode_i ({tag}) differs from plain (err {err})")
+        work = [t.clone() for t in zero]
+
+        def restore():
+            for w, z in zip(work, zero):
+                w.copy_(z)
+        ms = time_fn(lambda: HP.mb_encode_i(*pl, q, sd, rps, *work), 20,
+                     restore=restore, flush=flush, hide_launch=True)
+        R, M = q.shape[0], pl[0].shape[1] // 16
+        point(f"mb_encode_i {tag}", ms,
+              nbytes(*pl, q, sd, *ko) + int(nbytes(*kref) * sent_frac),
+              1200 * 24 * R * M)
+
+
+def k6_points(f1, f0, flush, seats: int = 4) -> None:
+    """K6 on the 1080p frame against prev at the band path's MB rows, at
+    the JPEG step's 17 stripes, on ``seats`` stacked frames (17 stripes
+    each), on an idle frame (prev equal) and on a fully damaged one, each
+    equal to the plain version, timed as timing points (its bound: every
+    byte of both frames read, the flags written: no early exit)."""
+    H = f1.shape[0]
+    s1, s0 = torch.cat([f1] * seats), torch.cat([f0] * seats)
+    cases = [("1080p rows", f1, f0, H // 16), ("17 stripes", f1, f0, 17),
+             (f"{seats} seats", s1, s0, 17 * seats),
+             ("idle", f1, f1, H // 16), ("full", 255 - f0, f0, H // 16)]
+    for tag, a, b, n in cases:
+        ko = HP.row_damage_probe(a, b, n)
+        err = max_abs_err([ko], [HP.row_damage_probe_plain(a, b, n)])
+        check(err == 0, f"row_damage_probe ({tag}) differs (err {err})")
+        if tag == "idle":
+            check(int(ko.sum()) == 0, "K6 flagged an idle frame")
+        if tag == "full":
+            check(int(ko.sum()) == n, "K6 missed a damaged band")
+        ms = time_fn(lambda: HP.row_damage_probe(a, b, n), 20, flush=flush,
+                     hide_launch=True)
+        point(f"row_damage_probe {tag}", ms, nbytes(a, b, ko), a.numel())
 
 
 def kernel_checks(frames, sess, grown) -> dict:
@@ -822,7 +886,8 @@ def kernel_checks(frames, sess, grown) -> dict:
           f"flags written, and the 16-byte pieces of prev that differ); "
           f"all-bytes bound {bound_ms(nbytes(f1, pk, pk, *ko), ops):.4f} ms")
     n_k1 = 4
-    dops = k1_device_ops(f1, f0.clone(), S, n_k1)
+    kp = f0.clone()
+    dops = device_ops(lambda: HP.csc420_damage(f1, kp, S), n_k1)
     print(f"K1 device operations per launch (torch.profiler, {n_k1} "
           f"launches traced): {len(dops) / n_k1:g} "
           f"{json.dumps(sorted(set(dops)))}")
@@ -857,6 +922,8 @@ def kernel_checks(frames, sess, grown) -> dict:
     # the sent stripes only
     by = nbytes(y, u, v, qp, send, *ko) + int(nbytes(*kref) * sent_frac)
     out["mb_encode_i"] = (err, ms, pms, by, 1200 * 24 * R * M, None)
+    point("mb_encode_i 1080p", ms, by, 1200 * 24 * R * M, pms)
+    k2i_points((y, u, v), qp, send, rps, flush, sent_frac)
 
     # K5 at the main path's shapes: the 57 default candidates, stripe
     # windows, a frame scrolled by 5 rows against the I recon
@@ -924,6 +991,14 @@ def kernel_checks(frames, sess, grown) -> dict:
                   hide_launch=True)
     out["row_damage_probe"] = (err, ms, pms, nbytes(f1, f0, ko),
                                f1.numel(), lib)
+    k6_points(f1, f0, flush)
+    n_k6 = 4
+    dops = device_ops(lambda: HP.row_damage_probe(f1, f0), n_k6)
+    print(f"K6 device operations per launch (torch.profiler, {n_k6} "
+          f"launches traced): {len(dops) / n_k6:g} "
+          f"{json.dumps(sorted(set(dops)))}")
+    check(len(dops) == n_k6 and len(set(dops)) == 1,
+          f"{n_k6} K6 launches made {len(dops)} device operations")
 
     # K3 and K4 on the K2 outputs of both modes, timed at both; the P
     # inputs also through bands of 4 and 16 rows (the band step's
@@ -3082,8 +3157,8 @@ def main() -> int:
               f"(plain {pms:.2f} ms, bound {max(t_bytes, t_ops):.4f} ms"
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
-    print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 timing "
-          "points (ms between "
+    print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I "
+          "/ K6 timing points (ms between "
           "CUDA events after an L2 flush, median of 20; bound and plain ms "
           "as in the kernels line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")

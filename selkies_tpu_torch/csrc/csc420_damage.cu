@@ -31,9 +31,8 @@
 // bytes) take a second instantiation the host picks, with byte loads and
 // stores. Float order: see csc_rows.cuh; the chroma mean is
 // ((a00 + a01) + (a10 + a11)) * 0.25, then rintf (half-even) and clamp.
-#include <mutex>
-
 #include "csc_rows.cuh"
+#include "launch_order.cuh"
 
 namespace {
 
@@ -185,11 +184,7 @@ csc420_damage_kernel(const uint8_t* __restrict__ frame,
   }
 }
 
-// per device: the event of the last launch and its stream; a launch on
-// another stream waits for that event
-std::mutex order_lock;
-cudaEvent_t last_launch[64];
-cudaStream_t last_stream[64];
+LaunchOrder order;                     // K1's launches across streams
 
 }  // namespace
 
@@ -210,17 +205,10 @@ extern "C" int csc420_damage(const uint8_t* frame, uint8_t* prev, uint8_t* y,
   long long P = (runs + kThreads - 1) / kThreads;
   if (P > kMaxBlocks) P = kMaxBlocks;
   if (P * S > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  std::lock_guard<std::mutex> hold(order.lock);
   int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  std::lock_guard<std::mutex> hold(order_lock);
-  if (!last_launch[dev]) {
-    const cudaError_t e = cudaEventCreateWithFlags(&last_launch[dev],
-                                                   cudaEventDisableTiming);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  } else if (st != last_stream[dev]) {
-    cudaStreamWaitEvent(st, last_launch[dev], 0);
-  }
+  const cudaError_t oe = order_before(order, st, &dev);
+  if (oe != cudaSuccess) return static_cast<int>(oe);
   const dim3 grid(static_cast<unsigned>(S * P));
   if (vec)
     csc420_damage_kernel<true><<<grid, kThreads, 0, st>>>(
@@ -229,9 +217,6 @@ extern "C" int csc420_damage(const uint8_t* frame, uint8_t* prev, uint8_t* y,
     csc420_damage_kernel<false><<<grid, kThreads, 0, st>>>(
         frame, prev, y, u, v, damage, W, stripe_h, static_cast<int>(P));
   const cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess) {
-    cudaEventRecord(last_launch[dev], st);
-    last_stream[dev] = st;
-  }
+  if (e == cudaSuccess) order_after(order, st, dev);
   return static_cast<int>(e);
 }

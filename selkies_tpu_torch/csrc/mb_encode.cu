@@ -10,20 +10,16 @@
 // _assemble_p_frame, and the send-gated reference advance of
 // engine/h264_encoder.py:build_h264_step_fn and build_h264_band_step_fn.
 //
-// Bound on the H100: I frames by the serial DC chain (the left-edge
-// dependency runs across the 120 MBs of a row, 68 rows in parallel), P
-// frames by bytes (cur + prediction planes in, reference + levels out,
-// ~15 MB at 1080p: 4.6 us).
-// I frames: one warp per macroblock, lanes 0..15 on the 16 luma 4x4
-// blocks, lanes 16..23 on the 8 chroma blocks, the per-MB decisions (cbp,
-// chroma DC Hadamard) by warp ballots and shuffles; one block per MB row;
-// the AC work (which does not depend on the DC prediction: the prediction
-// is constant per MB) runs in parallel over the row's MBs, only the DC /
-// edge chain walks the row on one warp (16 lanes luma DC, 8 lanes chroma
-// DC per MB step), then the recon runs in parallel again. The recon is
-// recomputed from the pixels rather than stored between phases. Recon
-// writes go straight into the reference planes for rows whose stripe is
-// sent.
+// Bound on the H100: I frames by bytes (planes in, levels, headers and
+// the sent reference out, ~12 MB at 1080p: 3.7 us) and, below that, by
+// the serial DC chain: each MB row's prediction runs left to right over
+// its 120 MBs, about 20 dependent integer operations an MB once the chain
+// is cut to the terms that depend on it (the I section below); P frames
+// by bytes (cur + prediction planes in, reference + levels out, ~15 MB at
+// 1080p: 4.6 us).
+// I frames: the chains' inputs over the whole card, then the row's luma
+// and chroma chains a block a row, then the coding over the whole card
+// (the I section below).
 // P frames: a block of 4 MBs of one row, 96 threads (a thread a 4x4
 // block, luma and chroma in warps of their own, so no lane idles), the
 // pixels staged in shared memory with 16-byte loads, the levels, the
@@ -33,187 +29,594 @@
 // when motion is on; with zero motion the prediction is the reference
 // plane itself, which a block stages whole before it writes any recon,
 // and blocks own disjoint MBs.
+#include "cluster.cuh"
 #include "h264_common.cuh"
 
 // ---------------------------------------------------------------- I frames
-// shared layout (ints), M = MBs per row
-#define SM_DCY(m) (sm + (m) * 16)                  // raw luma W00 by raster
-#define SM_DCC(m) (sm + 16 * M + (m) * 8)          // raw chroma W00 c*4+q
-#define SM_EY(m) (sm + 24 * M + (m) * 16)          // luma inv edge by*4+row
-#define SM_EC(m) (sm + 40 * M + (m) * 16)          // chroma edge c*8+by2*4+row
-#define SM_QY(m) (sm + 56 * M + (m) * 16)          // dequantized luma DC
-#define SM_QC(m) (sm + 72 * M + (m) * 8)           // dequantized chroma DC
-#define SM_PY(m) (sm + 80 * M + (m))               // luma pred
-#define SM_PC(m) (sm + 81 * M + (m) * 4)           // chroma pred c*2+half
-#define SM_FL(m) (sm + 85 * M + (m))               // bit0 luma AC, 1 cac, 2 cdc
-#define SM_INTS(M) (86 * (M) + 64)
+// Three grids a call, one after another.
+//
+// The chains carry only the terms that depend on the prediction. Every
+// row of the 4x4 Hadamard but the first sums to 0, so with the DC terms
+// W of the 16 blocks, Hd = H (W - 16 pred J) H is H W H but for
+// Hd00 = (HWH)00 - 256 pred, and Hd00 >> 1 = ((HWH)00 >> 1) - 128 pred
+// (256 pred is even): of the 16 luma DC levels only level 00 depends on
+// pred, and H L H = Frest + level00 at every position, Frest the inverse
+// of the other 15. A luma step is pred -> level00 -> the four
+// dequantised DC terms of the right column (Frest + level00) -> the 16
+// right-edge pixels -> their sum -> the next pred. Chroma (2x2): only
+// A + C and A - C carry the two halves' preds pt and pb, so a step is
+// (pt, pb) -> levels 0 and 2 -> the right column's two dequantised DC
+// terms -> 8 edge pixels -> pt, pb.
+//
+// 1. i_records_kernel: 4 lanes an MB (luma warps a lane a row of blocks,
+//    chroma warps a lane a component's row), over the whole card: each
+//    block's DC sum, the right-edge block's AC path down to its inverse's
+//    right column, the pred-free Hadamard terms (within a lane along the
+//    row, by shuffles down the column): each MB's chain record, the row's
+//    records back to back at the start of the row's lv (which only the
+//    third grid writes).
+// 2. i_chain_kernel: a block a row. Its records into shared memory, then
+//    luma on 16 lanes of one warp (a right-edge pixel a lane, summed by
+//    one warp reduction), Cb and Cr on a lane each of another, the next
+//    MB's record loaded ahead; each MB's outputs (pred and level00; pt,
+//    pb and levels 0 and 2) as words in shared memory, then where its
+//    header slots go (hdr_pay slots 0-4, rewritten by the third grid).
+// 3. i_code_kernel: a block 4 MBs of a row, 96 threads (a thread a 4x4
+//    block, as K2-P), over the whole card: the MBs staged in shared
+//    memory with 16-byte loads, the whole transform again (AC levels out
+//    as 32-byte slots, the inverse of the AC part), the DC levels and
+//    Frest by butterflies across an MB's lanes, the chains' words, the
+//    recon into the stage and out as 16-byte row pieces for sent rows,
+//    the DC slots, cbp and the headers.
+// Measured on the card (intra_probe.py): a chain step is set by its
+// dependent integer operations; a chain on one lane was moved by the
+// compiler to the uniform datapath (several times the latency), and a
+// cluster a row (the records and outputs through distributed shared
+// memory, the coding behind the chains) lost to the contention of the
+// coding warps and to the row's records converging on one SM.
+#define I_NB 4                       // MBs a tile, consecutive in one row
+#define I_THREADS 96                 // 24 threads an MB of a tile
+#define I_REC_MBS 16                 // MBs a block of the first grid
+#define I_LS (16 * I_NB + 16)        // luma stage pitch (bytes)
+#define I_CS (8 * I_NB + 16)         // chroma stage pitch
+#define I_REC 48                     // ints of an MB's chain record
+#define I_GROUP 8                    // MBs a bulk copy group of records
 
-__global__ void mb_encode_i_kernel(const uint8_t* __restrict__ yp,
-                                   const uint8_t* __restrict__ up,
-                                   const uint8_t* __restrict__ vp,
-                                   const int* __restrict__ qp_rows,
-                                   const int* __restrict__ send,
-                                   int rows_per_stripe, uint8_t* ref_y,
-                                   uint8_t* ref_u, uint8_t* ref_v,
-                                   int16_t* __restrict__ lv,
-                                   int* __restrict__ cbp_out,
-                                   int* __restrict__ hdr_pay,
-                                   int* __restrict__ hdr_nb, int M) {
-  extern __shared__ int sm[];
-  int* s_edge_y = sm + 86 * M;      // 16
-  int* s_edge_c = s_edge_y + 16;    // 16: c*8 + by2*4 + row
-  int* s_a = s_edge_c + 16;         // 16: luma DC levels of the MB step
-  int* s_b = s_a + 16;              // 8: chroma DC levels
-  const int r = blockIdx.x;
-  const int W = M * 16, W2 = M * 8;
+// an MB's record (ints): luma [0, 16) the right edge's inverse + 32
+// (block row by: [4 by, 4 by + 4)), [16, 20) Frest's right column, 20
+// (HWH)00 >> 1; chroma c at 24 + 12 c: [0, 8) the edge's inverse + 32
+// (by2 4..), 8 A + C, 9 level 1, 10 A - C, 11 level 3. Its outputs
+// (words of hdr_pay): 0 luma pred | (level00 + 4096) << 16; 1 + 2c
+// chroma c's top pt | (level0 + 4096) << 16, 2 + 2c its bottom
+// pb | (level2 + 4096) << 16.
+struct IStage {
+  uint8_t cur_y[16 * I_LS];          // the tile, then its recon
+  uint8_t cur_c[2][8 * I_CS];
+  alignas(16) int16_t dcs[I_NB][48];      // DC slots 0, 17, 18 of each MB
+  int cbp_luma[I_NB], cac[I_NB], cdc[I_NB][2];
+};
+
+// _quant_dc_e and _dequant_ldc_e / _dequant_cdc_e of one QP, the table
+// entries read once: level = clamp(sign (|y| mf + f2) >> sh); dequant
+// (f ls + add) >> dsh, luma f 16V 2^(qp/6 - 6) for qp/6 >= 6 and
+// (f 16V + 2^(5 - qp/6)) >> (6 - qp/6) below, chroma (f 16V 2^(qp/6)) >> 5.
+struct QuantDC {
+  int mf, f2, sh, ls, add, dsh;
+};
+
+__device__ __forceinline__ QuantDC quant_dc_consts(int qp, bool luma) {
+  QuantDC q;
+  const int qd = qp / 6, qm = qp % 6;
+  q.mf = K_MF[qm * 3];
+  q.sh = 16 + qd;
+  q.f2 = 2 * ((1 << (15 + qd)) / 3);
+  const int ls00 = 16 * K_V[qm * 3];
+  if (luma) {
+    q.ls = qd >= 6 ? ls00 * (1 << (qd - 6)) : ls00;
+    q.add = qd >= 6 ? 0 : 1 << (5 - qd);
+    q.dsh = qd >= 6 ? 0 : 6 - qd;
+  } else {
+    q.ls = ls00 * (1 << qd);
+    q.add = 0;
+    q.dsh = 5;
+  }
+  return q;
+}
+
+__device__ __forceinline__ int quant_dcq(int y, const QuantDC& q) {
+  const int mag = ((y < 0 ? -y : y) * q.mf + q.f2) >> q.sh;
+  return clampi(y < 0 ? -mag : mag, -LEVEL_CLAMP, LEVEL_CLAMP);
+}
+
+__device__ __forceinline__ int dequant_dcq(int f, const QuantDC& q) {
+  return (f * q.ls + q.add) >> q.dsh;
+}
+
+// H4 x (rows ++++, ++--, +--+, +-+-) of four values
+__device__ __forceinline__ void had4_vec(const int* d, int* r) {
+  const int s0 = d[0] + d[1], s1 = d[2] + d[3], t0 = d[0] - d[1],
+            t1 = d[2] - d[3];
+  r[0] = s0 + s1;
+  r[1] = s0 - s1;
+  r[2] = t0 - t1;
+  r[3] = t0 + t1;
+}
+
+// one butterfly step over lanes ``m`` apart (natural Hadamard order):
+// the lane with bit m clear gets v + partner, the other partner - v
+__device__ __forceinline__ int butterfly(unsigned mask, int v, int m,
+                                         bool hi) {
+  const int p = __shfl_xor_sync(mask, v, m);
+  return hi ? p - v : v + p;
+}
+
+// the AC path of an intra block down to its inverse's right column:
+// fwd, quant (intra), dequant, the inverse's column 3 rows -> e[i] + 32
+__device__ __forceinline__ void intra_edge(const int* x, const QuantP& q,
+                                           int* e) {
+  int w[16], d[16];
+  fwd4(x, w);
+  d[0] = 0;
+#pragma unroll
+  for (int k = 1; k < 16; k++)
+    d[k] = dequant_p(quant_p(w[k], q.mf[pos_cls(k)], q.f, q.qbits),
+                     q.ls[pos_cls(k)], q.dadd, q.dsh);
+  int f[4];
+#pragma unroll
+  for (int i = 0; i < 4; i++)
+    f[i] = (d[4 * i] + d[4 * i + 2]) - (d[4 * i + 1] + (d[4 * i + 3] >> 1));
+  const int g0 = f[0] + f[2], g1 = f[0] - f[2], g2 = (f[1] >> 1) - f[3],
+            g3 = f[1] + (f[3] >> 1);
+  e[0] = g0 + g3 + 32;
+  e[1] = g1 + g2 + 32;
+  e[2] = g1 - g2 + 32;
+  e[3] = g0 - g3 + 32;
+}
+
+// zigzag position of raster position k (K_INV_ZIGZAG, as nibbles)
+__device__ __forceinline__ int zz_pos(int k) {
+  return static_cast<int>((0xfea9db83c7426510ULL >> (4 * k)) & 15);
+}
+
+// Hadamard order of natural lane p: H4's row sig(p) comes out at lane p
+__device__ __forceinline__ int sig(int p) { return (0x2130 >> (4 * p)) & 15; }
+
+// four bytes of a word
+__device__ __forceinline__ void bytes4(unsigned w, int* x) {
+#pragma unroll
+  for (int j = 0; j < 4; j++) x[j] = (w >> (8 * j)) & 0xFF;
+}
+
+// The first grid: 16 MBs of a row a block of 128 threads, 4 lanes an MB:
+// warps 0-1 luma (a lane a row of blocks), warps 2-3 chroma (a lane a
+// component's row of two blocks), so no warp diverges on the plane; each
+// MB's chain record into the row's lv (FAST as i_code_kernel: 16- and
+// 8-byte row loads; else byte loads).
+template <bool FAST>
+__global__ void __launch_bounds__(128)
+i_records_kernel(const uint8_t* __restrict__ yp,
+                 const uint8_t* __restrict__ up,
+                 const uint8_t* __restrict__ vp,
+                 const int* __restrict__ qp_rows, int16_t* __restrict__ lv,
+                 int M) {
+  // the kernel before it (K1) has finished: no read comes before this
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int r = blockIdx.y, j = lane & 3;
+  const int m = I_REC_MBS * blockIdx.x + 8 * (warp & 1) + (lane >> 2);
+  const bool luma = warp < 2, on = m < M;
+  const int W = 16 * M, W2 = 8 * M;
   const int qp = qp_rows[r];
   const int qpc = K_QPC[clampi(qp, 0, 51)];
-  const bool is_luma = lane < 16, is_chroma = lane >= 16 && lane < 24;
-  const int cl = lane - 16, c = (lane - 16) >> 2, q = (lane - 16) & 3;
-  int16_t* lv_row = lv + static_cast<size_t>(r) * M * N_BLOCKS * 16;
-
-  // ---- phase 1: AC levels, raw DC terms, inverse right edges
-  for (int m = warp; m < M; m += nwarps) {
-    int x[16], w[16], acl[16], inv[16];
-    bool nz = false;
-    int16_t* lv_mb = lv_row + static_cast<size_t>(m) * N_BLOCKS * 16;
-    if (is_luma) {
-      const int by = lane >> 2, bx = lane & 3;
-      load4x4(yp, W, 16 * r + 4 * by, 16 * m + 4 * bx, x);
-      intra_ac(x, qp, w, acl, inv);
-      SM_DCY(m)[lane] = w[0];
-      store_scan(lv_mb + (1 + K_CODING_OF_RASTER[lane]) * 16, acl, 1);
-      nz = any_nz(acl);
-      if (bx == 3)
-        for (int i = 0; i < 4; i++) SM_EY(m)[by * 4 + i] = inv[4 * i + 3];
-    } else if (is_chroma) {
-      const int by2 = q >> 1, bx2 = q & 1;
-      load4x4(c ? vp : up, W2, 8 * r + 4 * by2, 8 * m + 4 * bx2, x);
-      intra_ac(x, qpc, w, acl, inv);
-      SM_DCC(m)[cl] = w[0];
-      store_scan(lv_mb + (19 + cl) * 16, acl, 1);
-      nz = any_nz(acl);
-      if (bx2 == 1)
-        for (int i = 0; i < 4; i++)
-          SM_EC(m)[c * 8 + by2 * 4 + i] = inv[4 * i + 3];
-    }
-    const unsigned bal = __ballot_sync(0xffffffffu, nz);
-    if (lane == 0)
-      SM_FL(m)[0] = ((bal & 0xFFFFu) != 0) | ((((bal >> 16) & 0xFFu) != 0) << 1);
-  }
-  __syncthreads();
-
-  // ---- phase 2: the DC / left-edge chain, one warp walking the row
-  if (warp == 0) {
-    for (int m = 0; m < M; m++) {
-      int16_t* lv_mb = lv_row + static_cast<size_t>(m) * N_BLOCKS * 16;
-      int pred = 128, pt = 128, pb = 128;
-      if (is_luma) {
-        if (m > 0) {
-          int s = 0;
-          for (int k = 0; k < 16; k++) s += s_edge_y[k];
-          pred = (s + 8) >> 4;
-        }
-        const int i = lane >> 2, j = lane & 3;
-        int hd = 0;
-        for (int a = 0; a < 4; a++)
-          for (int b = 0; b < 4; b++)
-            hd += h4(i, a) * (SM_DCY(m)[a * 4 + b] - 16 * pred) * h4(b, j);
-        s_a[lane] = quant_dc(hd >> 1, qp);
-      } else if (is_chroma) {
-        if (m > 0) {
-          int st = 0, sb = 0;
-          for (int k = 0; k < 4; k++) {
-            st += s_edge_c[c * 8 + k];
-            sb += s_edge_c[c * 8 + 4 + k];
-          }
-          pt = (st + 2) >> 2;
-          pb = (sb + 2) >> 2;
-        }
-        const int* dc = SM_DCC(m) + c * 4;
-        const int x00 = dc[0] - 16 * pt, x01 = dc[1] - 16 * pt;
-        const int x10 = dc[2] - 16 * pb, x11 = dc[3] - 16 * pb;
-        const int A = x00 + x01, B = x00 - x01, C = x10 + x11, D = x10 - x11;
-        const int hd2[4] = {A + C, B + D, A - C, B - D};
-        s_b[cl] = quant_dc(hd2[q], qpc);
+  const QuantDC dy = quant_dc_consts(qp, true), dc = quant_dc_consts(qpc, false);
+  // four rows of the MB: luma a row of blocks (16 bytes), chroma a
+  // component's row of two blocks (8 bytes)
+  unsigned q[4][4];
+  const int by = luma ? j : j & 1, c = j >> 1;
+#pragma unroll
+  for (int i = 0; i < 4; i++) {
+    q[i][0] = q[i][1] = q[i][2] = q[i][3] = 0u;
+    if (!on) continue;
+    if (luma) {
+      const uint8_t* p = yp + static_cast<size_t>(16 * r + 4 * by + i) * W
+                         + 16 * m;
+      if (FAST) {
+        const uint4 v = *reinterpret_cast<const uint4*>(p);
+        q[i][0] = v.x; q[i][1] = v.y; q[i][2] = v.z; q[i][3] = v.w;
+      } else {
+#pragma unroll
+        for (int b = 0; b < 16; b++)
+          q[i][b >> 2] |= static_cast<unsigned>(p[b]) << (8 * (b & 3));
       }
-      __syncwarp();
-      if (is_luma) {
-        const int i = lane >> 2, j = lane & 3;
-        int f = 0;
-        for (int a = 0; a < 4; a++)
-          for (int b = 0; b < 4; b++) f += h4(i, a) * s_a[a * 4 + b] * h4(b, j);
-        SM_QY(m)[lane] = dequant_ldc(f, qp);
-        lv_mb[K_INV_ZIGZAG[lane]] = static_cast<int16_t>(s_a[lane]);
-        if (lane == 0) SM_PY(m)[0] = pred;
-      } else if (is_chroma) {
-        const int* l = s_b + c * 4;
-        const int A = l[0] + l[1], B = l[0] - l[1], C = l[2] + l[3],
-                  D = l[2] - l[3];
-        const int f2[4] = {A + C, B + D, A - C, B - D};
-        SM_QC(m)[cl] = dequant_cdc(f2[q], qpc);
-        int16_t* slot = lv_mb + (17 + c) * 16;
-        slot[q] = static_cast<int16_t>(s_b[cl]);
-        for (int k = 0; k < 3; k++) slot[4 + 3 * q + k] = 0;
-        if (q < 2) SM_PC(m)[c * 2 + q] = q ? pb : pt;
+    } else {
+      const uint8_t* p = (c ? vp : up)
+                         + static_cast<size_t>(8 * r + 4 * by + i) * W2
+                         + 8 * m;
+      if (FAST) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        q[i][0] = v.x; q[i][1] = v.y;
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; b++)
+          q[i][b >> 2] |= static_cast<unsigned>(p[b]) << (8 * (b & 3));
       }
-      const unsigned cdc = __ballot_sync(0xffffffffu, is_chroma && s_b[cl] != 0);
-      if (lane == 0 && cdc) SM_FL(m)[0] |= 4;
-      __syncwarp();
-      if (is_luma) {
-        const int by = lane >> 2, ri = lane & 3;
-        s_edge_y[lane] = clip1(
-            pred + ((SM_EY(m)[by * 4 + ri] + SM_QY(m)[by * 4 + 3] + 32) >> 6));
-      } else if (is_chroma) {
-        const int by2 = q >> 1;
-        const int p = by2 ? pb : pt;
-        for (int k = 0; k < 2; k++) {
-          const int ri = (q & 1) * 2 + k;
-          s_edge_c[c * 8 + by2 * 4 + ri] = clip1(
-              p + ((SM_EC(m)[c * 8 + by2 * 4 + ri] + SM_QC(m)[c * 4 + by2 * 2 + 1]
-                    + 32) >> 6));
-        }
-      }
-      __syncwarp();
     }
   }
-  __syncthreads();
+  // the blocks' DC sums, the right-edge block's inverse column
+  int dcs[4], x[16], e[4];
+  const int ew = luma ? 3 : 1;
+#pragma unroll
+  for (int b = 0; b < 4; b++) {
+    unsigned s = 0;
+#pragma unroll
+    for (int i = 0; i < 4; i++) s = __dp4a(q[i][b], 0x01010101u, s);
+    dcs[b] = static_cast<int>(s);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; i++) {
+    const unsigned w = ew == 3 ? q[i][3] : q[i][1];
+    bytes4(w, x + 4 * i);
+  }
+  intra_edge(x, quant_p_consts(luma ? qp : qpc, 3), e);
+  int* base = reinterpret_cast<int*>(lv + static_cast<size_t>(r) * M
+                                     * (16 * N_BLOCKS))
+              + I_REC * m + (luma ? 0 : 24 + 12 * c);
+  if (luma) {
+    // (H W H) rows by lane: along the row in the lane, down the column
+    // by butterflies over the MB's four luma lanes (lane p then holds
+    // H's row sig(p))
+    const unsigned lm = 0xffffffffu;
+    int h[4], l[4], s[4];
+    had4_vec(dcs, h);
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      h[k] = butterfly(lm, h[k], 1, by & 1);
+      h[k] = butterfly(lm, h[k], 2, by & 2);
+    }
+    // the pred-free levels (00 left out), then their inverse Frest: the
+    // same butterflies on rows in H order give rows in natural order
+#pragma unroll
+    for (int k = 0; k < 4; k++)
+      l[k] = by == 0 && k == 0 ? 0 : quant_dcq(h[k] >> 1, dy);
+    had4_vec(l, s);
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      s[k] = butterfly(lm, s[k], 1, by & 1);
+      s[k] = butterfly(lm, s[k], 2, by & 2);
+    }
+    if (on) {
+      reinterpret_cast<int4*>(base)[by] = make_int4(e[0], e[1], e[2], e[3]);
+      base[16 + by] = s[3];
+      if (by == 0) base[20] = h[0] >> 1;
+    }
+  } else {
+    // chroma 2x2: A = x00 + x01, B = x00 - x01 from the top lane, C, D
+    // from the bottom one
+    const unsigned cm = 0xffffffffu;
+    const int sum = dcs[0] + dcs[1], dif = dcs[0] - dcs[1];
+    const int ps = __shfl_xor_sync(cm, sum, 1), pd = __shfl_xor_sync(cm, dif, 1);
+    const int a = by ? ps - sum : sum + ps;
+    const int l = quant_dcq(by ? pd - dif : dif + pd, dc);  // B + D, B - D
+    if (on) {
+      reinterpret_cast<int4*>(base)[by] = make_int4(e[0], e[1], e[2], e[3]);
+      reinterpret_cast<int2*>(base + 8)[by] = make_int2(a, l);
+    }
+  }
+}
 
-  // ---- phase 3: recon into the reference planes, MB outputs
+// The luma chain of a row on 16 lanes, lane k the right-edge pixel k
+// (block row k >> 2): each step pred -> level00 (in every lane) -> the
+// lane's block row's DC term -> its edge pixel -> the sum over the lanes
+// (one warp reduction) -> the next pred, the next MB's record loaded
+// ahead. Lane 0 stores the MB's word (pred, level00) as its header
+// slot 0.
+__device__ __forceinline__ void luma_chain(const int* rec,
+                                           unsigned long long* bars, int M,
+                                           int* out, int k,
+                                           const QuantDC& q) {
+  int pred = 128;
+  mbar_wait(bars, 0);
+  int e = rec[k], f3 = rec[16 + (k >> 2)], h00 = rec[20];
+  for (int m0 = 0; m0 < M; m0 += I_GROUP) {
+    // the next group's records, which the group's last step loads ahead
+    if (m0 + I_GROUP < M) mbar_wait(bars + m0 / I_GROUP + 1, 0);
+#pragma unroll
+    for (int j = 0; j < I_GROUP; j++) {
+      const int m = m0 + j;
+      if (m >= M) break;
+      const int* r = rec + I_REC * (m + 1 < M ? m + 1 : m);
+      const int en = r[k], fn = r[16 + (k >> 2)], hn = r[20];
+      const int dl = quant_dcq(h00 - 128 * pred, q);
+      const int px = clip1(pred + ((e + dequant_dcq(f3 + dl, q)) >> 6));
+      const int s = __reduce_add_sync(0xFFFFu, px);
+      if (k == 0)
+        out[HDR_SLOTS * m] = pred | ((dl + 4096) << 16);
+      pred = (s + 8) >> 4;
+      e = en;
+      f3 = fn;
+      h00 = hn;
+    }
+  }
+}
+
+// The chain of chroma component c on one lane: each step (pt, pb) ->
+// levels 0 and 2 -> the right column's two DC terms -> 8 edge pixels ->
+// (pt, pb); the MB's two words (pt and level 0, pb and level 2) as its
+// header slots 1 + 2c and 2 + 2c.
+__device__ __forceinline__ void chroma_chain(const int* rec,
+                                             unsigned long long* bars, int M,
+                                             int* out, int c,
+                                             const QuantDC& q) {
+  int pt = 128, pb = 128;
+  const int* rc = rec + 24 + 12 * c;
+  const int4* r4 = reinterpret_cast<const int4*>(rc);
+  mbar_wait(bars, 0);
+  int4 top = r4[0], bot = r4[1], d = r4[2];      // d: A + C, l1, A - C, l3
+  for (int m0 = 0; m0 < M; m0 += I_GROUP) {
+    if (m0 + I_GROUP < M) mbar_wait(bars + m0 / I_GROUP + 1, 0);
+#pragma unroll
+    for (int j = 0; j < I_GROUP; j++) {
+      const int m = m0 + j;
+      if (m >= M) break;
+      const int4* n4 = reinterpret_cast<const int4*>(
+          rc + I_REC * (m + 1 < M ? m + 1 : m));
+      const int4 tn = n4[0], bn = n4[1], dn = n4[2];
+      const int l0 = quant_dcq(d.x - 32 * (pt + pb), q);
+      const int l2 = quant_dcq(d.z - 32 * (pt - pb), q);
+      const int a = l0 - d.y, b = l2 - d.w;
+      const int dq1 = dequant_dcq(a + b, q), dq3 = dequant_dcq(a - b, q);
+      const int st = (clip1(pt + ((top.x + dq1) >> 6))
+                      + clip1(pt + ((top.y + dq1) >> 6)))
+                     + (clip1(pt + ((top.z + dq1) >> 6))
+                        + clip1(pt + ((top.w + dq1) >> 6)));
+      const int sb = (clip1(pb + ((bot.x + dq3) >> 6))
+                      + clip1(pb + ((bot.y + dq3) >> 6)))
+                     + (clip1(pb + ((bot.z + dq3) >> 6))
+                        + clip1(pb + ((bot.w + dq3) >> 6)));
+      int* o = out + HDR_SLOTS * m + 1 + 2 * c;
+      o[0] = pt | ((l0 + 4096) << 16);
+      o[1] = pb | ((l2 + 4096) << 16);
+      pt = (st + 2) >> 2;
+      pb = (sb + 2) >> 2;
+      top = tn;
+      bot = bn;
+      d = dn;
+    }
+  }
+}
+
+// The second grid: a block a row. Its records come into shared memory by
+// TMA bulk copies (warp 2), I_GROUP MBs a copy and an mbarrier, while the
+// chains (luma on lanes 0-15 of warp 0, Cb and Cr on lanes 0 and 1 of
+// warp 1) start on the first; their words into the row's header slots.
+__global__ void __launch_bounds__(96)
+i_chain_kernel(const int16_t* __restrict__ lv, const int* __restrict__ qp_rows,
+               int* __restrict__ hdr_pay, int M) {
+  extern __shared__ int4 rec4[];
+  int* rec = reinterpret_cast<int*>(rec4);
+  const int r = blockIdx.x, t = threadIdx.x;
+  const int groups = (M + I_GROUP - 1) / I_GROUP;
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(rec + I_REC * M);
+  if (t == 0) {
+    for (int g = 0; g < groups; g++) mbar_init(bars + g, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 64) {
+    // the row's records, contiguous at the start of its lv
+    const int* src = reinterpret_cast<const int*>(
+        lv + static_cast<size_t>(r) * M * (16 * N_BLOCKS));
+    for (int g = 0; g < groups; g++) {
+      const int n = M - g * I_GROUP < I_GROUP ? M - g * I_GROUP : I_GROUP;
+      const unsigned bar = smem_u32(bars + g), bytes = 4 * I_REC * n;
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(bar), "r"(bytes) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];"
+          :: "r"(smem_u32(rec + I_REC * I_GROUP * g)),
+             "l"(src + I_REC * I_GROUP * g), "r"(bytes), "r"(bar)
+          : "memory");
+    }
+  }
+  const int qp = qp_rows[r];
+  const int qpc = K_QPC[clampi(qp, 0, 51)];
+  // the words into shared memory, out to the row's header slots at the
+  // end in one pass of the block
+  int* out = reinterpret_cast<int*>(bars + groups);
+  const int lane = t & 31;
+  if (t < 16) {
+    luma_chain(rec, bars, M, out, lane, quant_dc_consts(qp, true));
+  } else if (t >= 32 && lane < 2) {
+    chroma_chain(rec, bars, M, out, lane, quant_dc_consts(qpc, false));
+  }
+  __syncthreads();
+  int* dst = hdr_pay + static_cast<size_t>(r) * M * HDR_SLOTS;
+  for (int i = t; i < M * HDR_SLOTS; i += 96) dst[i] = out[i];
+}
+
+// The third grid. FAST: every block is whole (M a multiple of I_NB) and
+// the six planes sit on 16-byte boundaries (the host checks), so the
+// stage moves in 16-byte pieces; otherwise in the widest pieces each
+// plane allows. Separate kernels, so the common one carries no code for
+// the rare shapes (as K2-P).
+template <bool FAST>
+__global__ void __launch_bounds__(I_THREADS, 8)
+i_code_kernel(const uint8_t* __restrict__ yp, const uint8_t* __restrict__ up,
+              const uint8_t* __restrict__ vp, const int* __restrict__ qp_rows,
+              const int* __restrict__ send, int rows_per_stripe,
+              uint8_t* ref_y, uint8_t* ref_u, uint8_t* ref_v,
+              int16_t* __restrict__ lv, int* __restrict__ cbp_out,
+              int* __restrict__ hdr_pay, int* __restrict__ hdr_nb, int M) {
+  __shared__ IStage st;
+  // the chain grid has finished: no read comes before this
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int t = threadIdx.x, lane = t & 31;
+  const int r = blockIdx.y, m0 = blockIdx.x * I_NB;
+  const int nb = M - m0 < I_NB ? M - m0 : I_NB;
+  const int mb = t < 64 ? t >> 4 : (t - 64) >> 3;
+  const int qp = qp_rows[r];
+  const int qpc = K_QPC[clampi(qp, 0, 51)];
   const bool sent = send[r / rows_per_stripe] != 0;
-  for (int m = warp; m < M; m += nwarps) {
-    int x[16], w[16], acl[16], inv[16], rec[16];
-    if (is_luma && sent) {
-      const int by = lane >> 2, bx = lane & 3;
-      load4x4(yp, W, 16 * r + 4 * by, 16 * m + 4 * bx, x);
-      intra_ac(x, qp, w, acl, inv);
-      const int p = SM_PY(m)[0], dc = SM_QY(m)[lane];
-      for (int k = 0; k < 16; k++) rec[k] = clip1(p + ((inv[k] + dc + 32) >> 6));
-      store4x4(ref_y, W, 16 * r + 4 * by, 16 * m + 4 * bx, rec);
-    } else if (is_chroma && sent) {
-      const int by2 = q >> 1, bx2 = q & 1;
-      load4x4(c ? vp : up, W2, 8 * r + 4 * by2, 8 * m + 4 * bx2, x);
-      intra_ac(x, qpc, w, acl, inv);
-      const int p = SM_PC(m)[c * 2 + by2], dc = SM_QC(m)[cl];
-      for (int k = 0; k < 16; k++) rec[k] = clip1(p + ((inv[k] + dc + 32) >> 6));
-      store4x4(c ? ref_v : ref_u, W2, 8 * r + 4 * by2, 8 * m + 4 * bx2, rec);
-    } else if (lane == 24) {
-      const int fl = SM_FL(m)[0];
-      const int luma = fl & 1;
-      const int chroma = (fl & 2) ? 2 : ((fl & 4) ? 1 : 0);
-      const size_t g = static_cast<size_t>(r) * M + m;
-      cbp_out[g] = (luma ? 15 : 0) | (chroma << 4);
-      int p, n;
-      ue_event(3 + 4 * chroma + (luma ? 12 : 0), &p, &n);
-      int* hp = hdr_pay + g * HDR_SLOTS;
-      int* hn = hdr_nb + g * HDR_SLOTS;
-      hp[0] = p; hn[0] = n;
-      hp[1] = 1; hn[1] = 1;
-      hp[2] = 1; hn[2] = 1;
-      for (int k = 3; k < HDR_SLOTS; k++) { hp[k] = 0; hn[k] = 0; }
+  const int Wp = 16 * M, W2 = 8 * M;
+  const size_t oy = static_cast<size_t>(16 * r) * Wp + 16 * m0;
+  const size_t oc = static_cast<size_t>(8 * r) * W2 + 8 * m0;
+  // the chains' words this thread needs (its MB's header slots: 0 luma,
+  // 1 + 2c and 2 + 2c chroma c)
+  unsigned w0 = 0, w1 = 0;
+  if (mb < nb) {
+    const int* h = hdr_pay + (static_cast<size_t>(r) * M + m0 + mb) * HDR_SLOTS;
+    const int k = t < 64 ? 0 : 1 + 2 * ((t >> 2) & 1);
+    w0 = h[k];
+    w1 = h[k + 1];
+  }
+  if constexpr (FAST) {
+    copy_rect<uint4, I_NB, true>(st.cur_y, I_LS, const_cast<uint8_t*>(yp) + oy,
+                                 Wp, 16, 0, t, I_THREADS);
+    copy_rect<uint4, I_NB / 2, true>(st.cur_c[0], I_CS,
+                                     const_cast<uint8_t*>(up) + oc, W2, 8, 0,
+                                     t, I_THREADS);
+    copy_rect<uint4, I_NB / 2, true>(st.cur_c[1], I_CS,
+                                     const_cast<uint8_t*>(vp) + oc, W2, 8, 0,
+                                     t, I_THREADS);
+  } else {
+    stage_rect<true, 16 * I_NB>(st.cur_y, I_LS, yp + oy, Wp, 16, 16 * nb, t,
+                                I_THREADS);
+    stage_rect<true, 8 * I_NB>(st.cur_c[0], I_CS, up + oc, W2, 8, 8 * nb, t,
+                               I_THREADS);
+    stage_rect<true, 8 * I_NB>(st.cur_c[1], I_CS, vp + oc, W2, 8, 8 * nb, t,
+                               I_THREADS);
+  }
+  __syncthreads();
+  const QuantP qy = quant_p_consts(qp, 3), qc = quant_p_consts(qpc, 3);
+  const QuantDC dy = quant_dc_consts(qp, true), dc = quant_dc_consts(qpc, false);
+  const size_t g = static_cast<size_t>(r) * M + m0 + mb;
+  uint4* slots = reinterpret_cast<uint4*>(lv) + g * (2 * N_BLOCKS);
+  int x[16], w[16], acl[16], d[16], inv[16];
+  if (t < 64) {
+    // ---- luma: thread b of MB mb codes 4x4 block b (raster)
+    const int b = t & 15, by = b >> 2, bx = b & 3;
+    uint8_t* sc = st.cur_y + 4 * by * I_LS + 16 * mb + 4 * bx;
+    load4x4_shared(sc, I_LS, x);
+    fwd4(x, w);
+    acl[0] = 0;
+    d[0] = 0;
+#pragma unroll
+    for (int k = 1; k < 16; k++) {
+      acl[k] = quant_p(w[k], qy.mf[pos_cls(k)], qy.f, qy.qbits);
+      d[k] = dequant_p(acl[k], qy.ls[pos_cls(k)], qy.dadd, qy.dsh);
     }
+    if (mb < nb) store_slot<true>(slots + 2 * (1 + coding_of_raster(b)), acl);
+    const unsigned m16 =
+        (__ballot_sync(0xffffffffu, any_nz(acl)) >> (lane & 16)) & 0xFFFFu;
+    if (b == 0) st.cbp_luma[mb] = m16 != 0;
+    inv4(d, inv);
+    // the MB's DC terms: H W H by butterflies over its 16 lanes (lane
+    // (p, q) then holds H's (sig(p), sig(q))), the pred-free levels,
+    // and Frest back in natural order
+    int v = w[0];
+#pragma unroll
+    for (int k = 1; k < 16; k <<= 1) v = butterfly(0xffffffffu, v, k, b & k);
+    int lvl = b == 0 ? 0 : quant_dcq(v >> 1, dy);
+    int f = lvl;
+#pragma unroll
+    for (int k = 1; k < 16; k <<= 1) f = butterfly(0xffffffffu, f, k, b & k);
+    if (mb < nb) {
+      const unsigned cw = w0;
+      const int pred = static_cast<int>(cw & 0xFFFFu);
+      const int dl = static_cast<int>(cw >> 16) - 4096;
+      if (b == 0) lvl = dl;
+      const int dq = dequant_dcq(f + dl, dy);
+#pragma unroll
+      for (int k = 0; k < 16; k++) x[k] = clip1(pred + ((inv[k] + dq + 32) >> 6));
+      store4x4_shared(sc, I_LS, x);
+      st.dcs[mb][zz_pos(4 * sig(by) + sig(bx))] = static_cast<int16_t>(lvl);
+    }
+  } else {
+    // ---- chroma: thread (c, q4) of MB mb codes block q4 of component c
+    const int cl = lane & 7, c = cl >> 2, q4 = cl & 3;
+    uint8_t* sc = st.cur_c[c] + 4 * (q4 >> 1) * I_CS + 8 * mb + 4 * (q4 & 1);
+    load4x4_shared(sc, I_CS, x);
+    fwd4(x, w);
+    acl[0] = 0;
+    d[0] = 0;
+#pragma unroll
+    for (int k = 1; k < 16; k++) {
+      acl[k] = quant_p(w[k], qc.mf[pos_cls(k)], qc.f, qc.qbits);
+      d[k] = dequant_p(acl[k], qc.ls[pos_cls(k)], qc.dadd, qc.dsh);
+    }
+    if (mb < nb) store_slot<true>(slots + 2 * (19 + cl), acl);
+    const unsigned cac8 =
+        (__ballot_sync(0xffffffffu, any_nz(acl)) >> (lane & 24)) & 0xFFu;
+    if (cl == 0) st.cac[mb] = cac8 != 0;
+    inv4(d, inv);
+    int dcw[4];
+#pragma unroll
+    for (int k = 0; k < 4; k++)
+      dcw[k] = __shfl_sync(0xffffffffu, w[0], (lane & ~3) + k);
+    const int B = dcw[0] - dcw[1], D = dcw[2] - dcw[3];
+    const int l1 = quant_dcq(B + D, dc), l3 = quant_dcq(B - D, dc);
+    if (mb < nb) {
+      const unsigned tw = w0, bw = w1;
+      const int pt = static_cast<int>(tw & 0xFFFFu);
+      const int pb = static_cast<int>(bw & 0xFFFFu);
+      const int l0 = static_cast<int>(tw >> 16) - 4096;
+      const int l2 = static_cast<int>(bw >> 16) - 4096;
+      const int A2 = l0 + l1, B2 = l0 - l1, C2 = l2 + l3, D2 = l2 - l3;
+      const int f4 = q4 == 0 ? A2 + C2 : q4 == 1 ? B2 + D2
+                     : q4 == 2 ? A2 - C2 : B2 - D2;
+      d[0] = dequant_dcq(f4, dc);
+      const int p = (q4 >> 1) ? pb : pt;
+#pragma unroll
+      for (int k = 0; k < 16; k++) x[k] = clip1(p + ((inv[k] + d[0] + 32) >> 6));
+      store4x4_shared(sc, I_CS, x);
+      reinterpret_cast<uint2*>(&st.dcs[mb][16 + 16 * c])[q4] =
+          q4 ? make_uint2(0, 0)
+             : make_uint2(pack_i16(l0, l1), pack_i16(l2, l3));
+      if (q4 == 0) st.cdc[mb][c] = (l0 | l1 | l2 | l3) != 0;
+    }
+  }
+  __syncthreads();
+  // ---- the tile's recon, DC slots, cbp and headers
+  if (sent) {
+    if constexpr (FAST) {
+      copy_rect<uint4, I_NB, false>(st.cur_y, I_LS, ref_y + oy, Wp, 16, 0, t,
+                                    I_THREADS);
+      copy_rect<uint4, I_NB / 2, false>(st.cur_c[0], I_CS, ref_u + oc, W2, 8,
+                                        0, t, I_THREADS);
+      copy_rect<uint4, I_NB / 2, false>(st.cur_c[1], I_CS, ref_v + oc, W2, 8,
+                                        0, t, I_THREADS);
+    } else {
+      stage_rect<false, 16 * I_NB>(st.cur_y, I_LS, ref_y + oy, Wp, 16, 16 * nb,
+                                   t, I_THREADS);
+      stage_rect<false, 8 * I_NB>(st.cur_c[0], I_CS, ref_u + oc, W2, 8, 8 * nb,
+                                  t, I_THREADS);
+      stage_rect<false, 8 * I_NB>(st.cur_c[1], I_CS, ref_v + oc, W2, 8, 8 * nb,
+                                  t, I_THREADS);
+    }
+  }
+  const size_t g0 = static_cast<size_t>(r) * M + m0;
+  if (t < 6 * nb) {
+    // slot 0 (2 pieces) and slots 17, 18 (4 pieces) of MB t / 6
+    const int hm = t / 6, k = t - 6 * hm;
+    uint4* dst = reinterpret_cast<uint4*>(lv) + (g0 + hm) * (2 * N_BLOCKS)
+                 + (k < 2 ? k : 2 * 17 + k - 2);
+    *dst = reinterpret_cast<const uint4*>(st.dcs[hm])[k];
+  } else if (t >= 32 && t < 32 + HDR_SLOTS * nb) {
+    const int hm = (t - 32) / HDR_SLOTS, k = t - 32 - HDR_SLOTS * hm;
+    const int luma = st.cbp_luma[hm];
+    const int chroma = st.cac[hm] ? 2 : ((st.cdc[hm][0] | st.cdc[hm][1]) ? 1 : 0);
+    int p = 0, n = 0;
+    if (k == 0) {
+      ue_event(3 + 4 * chroma + (luma ? 12 : 0), &p, &n);
+      cbp_out[g0 + hm] = (luma ? 15 : 0) | (chroma << 4);
+    } else if (k < 3) {
+      p = 1;
+      n = 1;
+    }
+    hdr_pay[(g0 + hm) * HDR_SLOTS + k] = p;
+    hdr_nb[(g0 + hm) * HDR_SLOTS + k] = n;
   }
 }
 
@@ -514,26 +917,63 @@ mb_encode_p_kernel(const uint8_t* __restrict__ yp,
   }
 }
 
+// every pointer on a 16-byte boundary
+template <typename... P>
+static bool aligned(P... p) {
+  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
+}
+
 extern "C" int mb_encode_i(const uint8_t* y, const uint8_t* u,
                            const uint8_t* v, const int* qp, const int* send,
                            int rows_per_stripe, uint8_t* ref_y, uint8_t* ref_u,
                            uint8_t* ref_v, int16_t* lv, int* cbp, int* hdr_pay,
                            int* hdr_nb, int R, int M, void* stream) {
-  const size_t smem = sizeof(int) * SM_INTS(M);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(mb_encode_i_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  mb_encode_i_kernel<<<R, 128, smem, static_cast<cudaStream_t>(stream)>>>(
-      y, u, v, qp, send, rows_per_stripe, ref_y, ref_u, ref_v, lv, cbp,
-      hdr_pay, hdr_nb, M);
+  if (R <= 0 || M <= 0 || rows_per_stripe <= 0 || R > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (M + I_NB - 1) / I_NB;
+  const bool fast = M % I_NB == 0 && aligned(y, u, v, ref_y, ref_u, ref_v);
+  // the chain grid's records in shared memory: it may have all a block
+  // can opt into (per device, set once; the value is the same in every
+  // thread that races to set it)
+  static int optin[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!optin[dev]) {
+    int smem = 0;
+    cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    cudaFuncSetAttribute(i_chain_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    optin[dev] = smem;
+  }
+  const int smem = 4 * (I_REC + HDR_SLOTS) * M
+                   + 8 * ((M + I_GROUP - 1) / I_GROUP);
+  if (smem > optin[dev]) return static_cast<int>(cudaErrorInvalidValue);
+  // the first grid behind the kernel before it (programmatic dependent
+  // launch: K1 in the I step) and the coding grid behind the chain grid,
+  // each waiting for the one before inside; the chain grid in stream
+  // order (launched early behind the first grid, its blocks ran the
+  // chains several times slower)
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3((M + I_REC_MBS - 1) / I_REC_MBS, R);
+  cfg.blockDim = dim3(128);
+  cudaLaunchKernelEx(&cfg,
+                     fast ? i_records_kernel<true> : i_records_kernel<false>,
+                     y, u, v, qp, lv, M);
+  i_chain_kernel<<<R, 96, smem, cfg.stream>>>(lv, qp, hdr_pay, M);
+  cfg.gridDim = dim3(tiles, R);
+  cfg.blockDim = dim3(I_THREADS);
+  cudaLaunchKernelEx(&cfg, fast ? i_code_kernel<true> : i_code_kernel<false>,
+                     y, u, v, qp, send, rows_per_stripe, ref_y, ref_u, ref_v,
+                     lv, cbp, hdr_pay, hdr_nb, M);
   return static_cast<int>(cudaGetLastError());
-}
-
-// every pointer on a 16-byte boundary
-template <typename... P>
-static bool aligned(P... p) {
-  return ((reinterpret_cast<uintptr_t>(p) % 16 == 0) && ...);
 }
 
 static int launch_p(const uint8_t* y, const uint8_t* u, const uint8_t* v,

@@ -1,9 +1,10 @@
 // The stream stage that K4 pack_stream (csrc/pack_stream.cu) and K9
-// jpeg_pack (csrc/jpeg_pack.cu) share: the cluster, mbarrier and TMA
-// bulk-copy helpers of their row kernels (a cluster of P blocks a row or
-// stripe, each block's slots brought into shared memory by cp.async.bulk),
-// the codeword sink their blocks place into words with (BitSink), the
-// 16-byte word stores, and the byte stage.
+// jpeg_pack (csrc/jpeg_pack.cu) share: the TMA bulk-copy helpers of
+// their row kernels (a cluster of P blocks a row or stripe, each block's
+// slots brought into shared memory by cp.async.bulk; the cluster and
+// mbarrier helpers are in cluster.cuh), the codeword sink their blocks
+// place into words with (BitSink), the 16-byte word stores, and the byte
+// stage.
 //
 // The byte stage, stream_bytes_kernel<PAD>, replaces selkies_tpu/ops/
 // stripes.py:words_to_bytes_device (PAD false for H.264's zero-padded
@@ -25,71 +26,12 @@
 // before), the buffer written once; launched behind the row kernel
 // (programmatic dependent launch), it waits for it inside.
 #pragma once
+#include "cluster.cuh"
 #include "h264_common.cuh"
 
 namespace {
 
 constexpr int kWords = 2048;        // a block's words in shared memory
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  }
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-// the two halves of cluster_sync, for work between them
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ int cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return static_cast<int>(r);
-}
-
-// the shared address ``a`` of this block, in block ``rank`` of the cluster
-__device__ __forceinline__ unsigned map_rank(unsigned a, int rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(r) : "r"(a), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster(unsigned a, int v) {
-  asm volatile("st.shared::cluster.u32 [%0], %1;" :: "r"(a), "r"(v)
-               : "memory");
-}
 
 __device__ __forceinline__ int misalign(const void* p) {
   return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 15);

@@ -61,8 +61,19 @@ blocks (the whole 1080p frame as one), and 4 stacked seats; for K7 W =
 subsamplings, widths whose last block of MCUs is partial, per-stripe
 tables with the ulp tables of 1/16, 4 stacked seats, a frame 8 bytes
 into its storage (taken) and one 4 bytes in (refused), and its hoisted
-divide against __fdiv_rn over every mantissa of the dividend) and must
-match it exactly, overflow flags included. Tolerance: 0.
+divide against __fdiv_rn over every mantissa of the dividend; for K2-I
+qp 0 and 51 and a different qp on every row on all-0, all-255, noise and
+black-and-white planes (DC levels at LEVEL_CLAMP, edges clipped), 1, 5,
+6, 13, 120 and 125 MBs a row, 1 to 4 MB rows, send gates all on, all
+off and mixed (the unsent rows of a noise reference checked untouched),
+planes and references 1, 4 and 8 bytes into their storage, and 1 and 4
+stacked 1080p frames; for K6 bands of 1, 68 MB rows, 17 stripes, 4
+stacked seats' 68 stripes and 135 MB rows at 3840x2160, rows off 16
+bytes, frames 1 and 3 bytes into their storage, idle and fully damaged
+frames, one differing byte at each band's first and last byte and on
+both sides of a 16-byte piece boundary, and launches alternating over
+two streams) and must match it exactly, overflow flags included.
+Tolerance: 0.
 """
 
 import numpy as np
@@ -2199,3 +2210,198 @@ def test_k5_refuses_misaligned_planes(dev):
     off.copy_(cur)
     with pytest.raises(RuntimeError, match="motion_select"):
         TE.motion_select(off, *ref, qp, TE.scroll_candidates(), 32)
+
+
+# ---------------------------------------------------------------- K2-I
+def _k2i_planes(dev, H, W, kind, seed, offset=0):
+    """Y, U, V of ``kind`` (noise, zero, max, binary), each ``offset``
+    bytes into its storage (0: fresh tensors)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2)):
+        if kind == "noise":
+            a = rng.integers(0, 256, (h, w), dtype=np.uint8)
+        elif kind == "binary":
+            a = (rng.integers(0, 2, (h, w)) * 255).astype(np.uint8)
+        else:
+            a = np.full((h, w), 0 if kind == "zero" else 255, np.uint8)
+        t = torch.as_tensor(a, device=dev)
+        if offset:
+            flat = torch.zeros(h * w + offset, dtype=torch.uint8, device=dev)
+            view = flat[offset:].view(h, w)
+            view.copy_(t)
+            t = view
+        out.append(t)
+    return out
+
+
+def _k2i_same(dev, planes, qp, send, rps, offset=0, seed=1):
+    """K2-I against plain on reference planes that start as noise (rows
+    of unsent stripes must keep it), levels, cbp, headers and the whole
+    reference planes at tolerance 0."""
+    base = _k2i_planes(dev, planes[0].shape[0], planes[0].shape[1],
+                       "noise", seed, offset)
+    kref = [b.clone() if not offset else b for b in base]
+    pref = [b.clone() for b in base]
+    before = [b.clone() for b in pref]
+    ko = HP.mb_encode_i(*planes, qp, send, rps, *kref)
+    po = HP.mb_encode_i_plain(*planes, qp, send, rps, *pref)
+    _same(list(ko) + kref, list(po) + pref)
+    rows = send.repeat_interleave(rps) == 0
+    for k, b, c in zip(kref, before, (1, 2, 2)):
+        unsent = rows.repeat_interleave(16 // c)
+        assert torch.equal(k[unsent].cpu(), b[unsent].cpu())
+    return ko
+
+
+def _qp_rows(dev, R, mode, seed=3):
+    if mode == "rows":
+        rng = np.random.default_rng(seed)
+        q = rng.permutation(52)[np.arange(R) % 52].astype(np.int32)
+        return torch.as_tensor(q, device=dev)
+    return torch.full((R,), int(mode), dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("kind", ["noise", "zero", "max", "binary"])
+@pytest.mark.parametrize("qp", ["0", "51", "rows"])
+def test_mb_encode_i_levels_clamp_and_edges_clip(dev, kind, qp):
+    """K2-I at qp 0 and 51 and a different qp on every row, on all-0,
+    all-255, noise and black-and-white frames (DC levels at LEVEL_CLAMP,
+    edges clipped at 0 and 255), every other stripe sent."""
+    H, W, rps = 128, 128, 2
+    planes = _k2i_planes(dev, H, W, kind, 5)
+    q = _qp_rows(dev, H // 16, qp)
+    send = (torch.arange(H // 16 // rps, device=dev) % 2 == 0).to(
+        torch.int32)
+    lv = _k2i_same(dev, planes, q, send, rps)[0]
+    if kind in ("zero", "max") and qp == "0":
+        assert int(lv[:, :, 0].abs().max()) == 2000
+
+
+@pytest.mark.parametrize("geom", [(16, 16), (16, 80), (48, 208), (32, 96),
+                                  (64, 1920), (16, 2000)])
+@pytest.mark.parametrize("gate", ["on", "off", "mixed"])
+def test_mb_encode_i_row_widths_and_send_gates(dev, geom, gate):
+    """K2-I at M = 1, 5 (odd), 13, 6 (not multiples of the 4 MBs a tile),
+    120 and 125, R = 1 to 4, with the send gates all on, all off and
+    mixed (unsent reference rows untouched)."""
+    H, W = geom
+    R = H // 16
+    rps = 1 if R < 4 else 2
+    planes = _k2i_planes(dev, H, W, "noise", W)
+    S = R // rps
+    send = {"on": torch.ones(S, dtype=torch.int32, device=dev),
+            "off": torch.zeros(S, dtype=torch.int32, device=dev),
+            "mixed": (torch.arange(S, device=dev) % 2).to(torch.int32)}[gate]
+    _k2i_same(dev, planes, _qp_rows(dev, R, "rows", W), send, rps)
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+@pytest.mark.parametrize("geom", [(64, 128), (32, 80)])
+def test_mb_encode_i_on_unaligned_planes(dev, offset, geom):
+    """K2-I on planes and references that start ``offset`` bytes into
+    their storage (the instantiation for planes off 16 bytes)."""
+    H, W = geom
+    planes = _k2i_planes(dev, H, W, "noise", 9, offset)
+    send = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    _k2i_same(dev, planes, _qp_rows(dev, H // 16, "rows"), send,
+              H // 16 // 2, offset=offset)
+
+
+@pytest.mark.parametrize("seats", [1, 4])
+def test_mb_encode_i_at_1080p_and_on_stacked_seats(dev, seats):
+    """K2-I on 1, and 4 stacked, 1920x1088 frames (68 and 272 MB rows:
+    fewer blocks a row where the rows would not fit one wave), qp mixed
+    by row, every other stripe sent."""
+    H, W, rps = 1088 * seats, 1920, 4
+    planes = _k2i_planes(dev, H, W, "noise", 17)
+    qp = torch.full((H // 16,), 25, dtype=torch.int32, device=dev)
+    qp[::3] = 10
+    send = (torch.arange(H // 16 // rps, device=dev) % 2 == 0).to(
+        torch.int32)
+    _k2i_same(dev, planes, qp, send, rps)
+
+
+# ---------------------------------------------------------------- K6
+def _k6_same(frame, prev, R):
+    got = HP.row_damage_probe(frame, prev, R)
+    _same([got], [HP.row_damage_probe_plain(frame, prev, R)])
+    return got
+
+
+def _k6_frame(dev, H, W, seed, offset=0):
+    rng = np.random.default_rng(seed)
+    a = torch.as_tensor(rng.integers(0, 256, (H, W, 3), dtype=np.uint8),
+                        device=dev)
+    if offset:
+        flat = torch.zeros(H * W * 3 + offset, dtype=torch.uint8, device=dev)
+        view = flat[offset:].view(H, W, 3)
+        view.copy_(a)
+        a = view
+    return a
+
+
+@pytest.mark.parametrize("geom", [(16, 40, 1), (1088, 1920, 68),
+                                  (1088, 1920, 17), (4 * 1088, 1920, 68),
+                                  (2160, 3840, 135), (64, 54, 4),
+                                  (5, 7, 5), (48, 18, 3)])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_row_damage_probe_bands_and_bases(dev, geom, offset):
+    """K6 at R = 1, 68 MB rows, 17 JPEG stripes, 4 stacked seats' 68
+    stripes, 135 MB rows at 3840x2160, widths whose rows are not 16-byte
+    multiples (W = 54, 7, 18), on frames 0, 1 and 3 bytes into their
+    storage: an idle frame (all 0), a fully damaged one (all 1) and one
+    damaged band in three."""
+    H, W, R = geom
+    prev = _k6_frame(dev, H, W, 1, offset)
+    frame = _k6_frame(dev, H, W, 1, offset)
+    assert int(_k6_same(frame, prev, R).sum()) == 0
+    full = _k6_frame(dev, H, W, 2, offset)
+    full.copy_(255 - prev)
+    assert int(_k6_same(full, prev, R).sum()) == R
+    band = H // R
+    for r in range(0, R, 3):
+        frame[r * band + band // 2, W // 2, 1] ^= 0x40
+    got = _k6_same(frame, prev, R)
+    assert got.cpu().tolist() == [int(r % 3 == 0) for r in range(R)]
+
+
+@pytest.mark.parametrize("geom", [(1088, 1920, 68), (1088, 1920, 17),
+                                  (64, 54, 4), (48, 18, 3)])
+def test_row_damage_probe_one_byte_at_band_and_piece_edges(dev, geom):
+    """One differing byte at the first and the last byte of each band,
+    and on both sides of a 16-byte piece boundary inside it: exactly that
+    band flagged."""
+    H, W, R = geom
+    prev = _k6_frame(dev, H, W, 4)
+    band = 3 * W * (H // R)
+    for r in range(R):
+        for k in (0, band - 1, 15, 16, band // 2 - 1, band // 2):
+            frame = prev.clone()
+            frame.view(-1)[r * band + k] ^= 1
+            got = _k6_same(frame, prev, R)
+            assert got.cpu().tolist() == [int(i == r) for i in range(R)]
+            if R > 8 and r not in (0, R // 2, R - 1):
+                break
+
+
+def test_row_damage_probe_on_two_streams(dev):
+    """K6 launches alternating between two streams (its bands' tickets are
+    shared module state, so the second waits for the first), on frames
+    large enough for many blocks a band: every launch's flags equal the
+    plain version's."""
+    H, W, R = 1088, 1920, 68
+    prev = _k6_frame(dev, H, W, 6)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for k in range(8):
+        frame = prev.clone()
+        frame.view(-1)[(k * 977) % (H // R * W * 3) + (k % R) * (H // R)
+                       * W * 3] ^= 1
+        streams[k % 2].wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(streams[k % 2]):
+            outs.append((frame, HP.row_damage_probe(frame, prev, R)))
+    torch.cuda.synchronize()
+    for frame, got in outs:
+        _same([got], [HP.row_damage_probe_plain(frame, prev, R)])
+        assert int(got.sum()) == 1
