@@ -112,8 +112,15 @@ every other stripe sent), at qp 0 and 51 and on 4 stacked seats (272 MB
 rows); K6 at 1080p MB rows, at the JPEG step's 17 stripes, on 4 stacked
 seats (68 stripes), on an idle and on a fully damaged frame, each equal
 to the plain version, and a torch.profiler trace showing that one K6
-launch is one device operation (the "K3 / K4 / K16 / K5 / K19 / K2-P /
-K10 / K9 / K15 / K1 / K7 / K2-I / K6 timing points" line).
+launch is one device operation; K8 at 1080p 4:2:0 on K7's coefficients
+at quality 60 and at 90, at 4:4:4 and on 4 stacked seats (68 stripes);
+K11 at 1080p into the 1088-row grid, at 3840x2160 into 3840x2176, at
+1366x768 into 1376x768 and from a 1080p source view one byte into its
+storage, each beside ``F.pad`` of the same frame; each equal to the
+plain version, with torch.profiler traces showing that one K8 and one
+K11 launch are one device operation each (the "K3 / K4 / K16 / K5 / K19
+/ K2-P / K10 / K9 / K15 / K1 / K7 / K2-I / K6 / K8 / K11 timing points"
+line).
 The main path's three step shapes (stock I, full-frame P band,
 one-stripe P band) are timed on the device between CUDA events, the
 host's enqueue hidden behind a spin kernel, for the default session
@@ -636,15 +643,29 @@ def bound_ms(by: int, ops: int) -> float:
 
 
 #: K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I / K6
-#: timing points
-#: beyond the kernels line:
+#: / K8 / K11 timing points beyond the kernels line:
 #: shape -> record
 POINTS: dict = {}
 
 
-def point(name: str, ms: float, by: int, ops: int, pms=None) -> None:
+def point(name: str, ms: float, by: int, ops: int, pms=None,
+          lib=None) -> None:
     POINTS[name] = {"ms": ms, "bound_ms": bound_ms(by, ops),
                     "plain_ms": pms}
+    if lib is not None:
+        POINTS[name]["library_ms"] = lib
+
+
+def one_op_a_launch(name: str, call) -> None:
+    """Print the device operations of 4 launches of ``call`` (one kernel
+    launch each, by torch.profiler) and require one a launch."""
+    n = 4
+    dops = device_ops(call, n)
+    print(f"{name} device operations per launch (torch.profiler, {n} "
+          f"launches traced): {len(dops) / n:g} "
+          f"{json.dumps(sorted(set(dops)))}")
+    check(len(dops) == n and len(set(dops)) == 1,
+          f"{n} {name} launches made {len(dops)} device operations")
 
 
 def motion_points(name: str, kern, plain, cur, ref, qp, cands, win: int,
@@ -885,14 +906,8 @@ def kernel_checks(frames, sess, grown) -> dict:
           f"must move on this run's data: frame and prev read, Y/U/V and the "
           f"flags written, and the 16-byte pieces of prev that differ); "
           f"all-bytes bound {bound_ms(nbytes(f1, pk, pk, *ko), ops):.4f} ms")
-    n_k1 = 4
     kp = f0.clone()
-    dops = device_ops(lambda: HP.csc420_damage(f1, kp, S), n_k1)
-    print(f"K1 device operations per launch (torch.profiler, {n_k1} "
-          f"launches traced): {len(dops) / n_k1:g} "
-          f"{json.dumps(sorted(set(dops)))}")
-    check(len(dops) == n_k1 and len(set(dops)) == 1,
-          f"{n_k1} K1 launches made {len(dops)} device operations")
+    one_op_a_launch("K1", lambda: HP.csc420_damage(f1, kp, S))
 
     # K2: both entries; every other stripe sent, so the gate shows. P
     # codes frame f2 against the I recon of f1 with K5's prediction
@@ -992,13 +1007,7 @@ def kernel_checks(frames, sess, grown) -> dict:
     out["row_damage_probe"] = (err, ms, pms, nbytes(f1, f0, ko),
                                f1.numel(), lib)
     k6_points(f1, f0, flush)
-    n_k6 = 4
-    dops = device_ops(lambda: HP.row_damage_probe(f1, f0), n_k6)
-    print(f"K6 device operations per launch (torch.profiler, {n_k6} "
-          f"launches traced): {len(dops) / n_k6:g} "
-          f"{json.dumps(sorted(set(dops)))}")
-    check(len(dops) == n_k6 and len(set(dops)) == 1,
-          f"{n_k6} K6 launches made {len(dops)} device operations")
+    one_op_a_launch("K6", lambda: HP.row_damage_probe(f1, f0))
 
     # K3 and K4 on the K2 outputs of both modes, timed at both; the P
     # inputs also through bands of 4 and 16 rows (the band step's
@@ -1714,6 +1723,61 @@ def k7_point(name: str, frame, base, tab, qt, sub: str, flush):
     return ms, pms, by, ops
 
 
+def k8_points(frame, sess, flush) -> None:
+    """K8 on K7's coefficients of the 1080p ``frame`` (every stripe on the
+    quality 60 table, then on the 90 one), at 4:4:4, and on ``SEATS``
+    stacked frames (17 stripes each), each equal to the plain version
+    (tolerance 0), timed as timing points."""
+    g, dev = sess.grid, frame.device
+    S = g.n_stripes
+    qt = sess._qtab
+    zero = torch.zeros((S,), dtype=torch.int32, device=dev)
+    scan444 = JE.scan_maps(JE.scan_layout(g.stripe_h // 8, g.width // 8,
+                                          "444"), dev)
+    stack = torch.cat([torch.roll(frame, 37 * k, 1) for k in range(SEATS)])
+    cases = [("1080p q60", frame, zero, "420", sess._scan, S),
+             ("1080p q90", frame, zero + 1, "420", sess._scan, S),
+             ("1080p 4:4:4", frame, zero, "444", scan444, S),
+             (f"seats S={SEATS * S}", stack, zero.repeat(SEATS), "420",
+              sess._scan, SEATS * S)]
+    for tag, f, tab, sub, scan, n in cases:
+        planes = JPL.jpeg_forward(f, torch.zeros_like(f), tab, qt, sub)
+        ko = JE.jpeg_events(*planes, scan, n)
+        err = max_abs_err(ko, JE.jpeg_events_plain(*planes, scan, n))
+        check(err == 0, f"jpeg_events ({tag}) differs from plain "
+              f"(err {err})")
+        ms = time_fn(lambda: JE.jpeg_events(*planes, scan, n), 20,
+                     flush=flush, hide_launch=True)
+        point(f"jpeg_events {tag}", ms, nbytes(*planes, scan, *ko),
+              20 * ko[0].numel())
+
+
+def k11_points(dev, flush) -> None:
+    """K11 at 1080p into the 1088-row grid, at 3840x2160 into 3840x2176,
+    at 1366x768 into its 1376-wide grid and from a 1080p source view one
+    byte into its storage, each equal to the plain version and to
+    ``F.pad``, timed as timing points beside ``F.pad``."""
+    F = torch.nn.functional
+    for tag, (h, w), (H, W), off in (
+            ("1080p", (1080, 1920), (1088, 1920), 0),
+            ("2160p", (2160, 3840), (2176, 3840), 0),
+            ("1366x768", (768, 1366), (768, 1376), 0),
+            ("1080p source +1 byte", (1080, 1920), (1088, 1920), 1)):
+        src = FR.synthetic_frame(h, w, 11, dev)
+        buf = torch.empty(src.numel() + off, dtype=torch.uint8, device=dev)
+        frame = buf[off:].view(src.shape).copy_(src)
+        ko = FR.pad_frame(frame, H, W)
+        lib_out = F.pad(frame, (0, 0, 0, W - w, 0, H - h))
+        err = max_abs_err([ko], [FR.pad_frame_plain(frame, H, W)])
+        check(err == 0 and torch.equal(ko, lib_out),
+              f"pad_frame ({tag}) differs from plain or F.pad (err {err})")
+        ms = time_fn(lambda: FR.pad_frame(frame, H, W), 20, flush=flush,
+                     hide_launch=True)
+        lib = time_fn(lambda: F.pad(frame, (0, 0, 0, W - w, 0, H - h)), 20,
+                      flush=flush, hide_launch=True)
+        point(f"pad_frame {tag}", ms, nbytes(frame, ko), 0, lib=lib)
+
+
 def jpeg_kernel_checks(frames, sess) -> dict:
     """K6 at stripe granularity and K7-K9 against their plain versions at
     the 1080p JPEG path's shapes (tolerance 0), then timed. ``sess`` holds
@@ -1771,6 +1835,8 @@ def jpeg_kernel_checks(frames, sess) -> dict:
     pms = time_fn(lambda: JE.jpeg_events_plain(*ko, scan, S), 3)
     out["jpeg_events"] = (err, ms, pms, nbytes(*ko, scan, *k8),
                           20 * k8[0].numel(), None)
+    k8_points(f1, sess, flush)
+    one_op_a_launch("K8", lambda: JE.jpeg_events(*ko, scan, S))
 
     # K9 at the stock, the grown and too small caps
     for caps, tag in (((e_cap, w_cap, out_cap), "stock"),
@@ -2051,6 +2117,8 @@ def frame_kernel_checks(dev) -> dict:
     lib = time_fn(lambda: torch.nn.functional.pad(
         frame, (0, 0, 0, 0, 0, GH - H)), 20, flush=flush, hide_launch=True)
     out["pad_frame"] = (err, ms, pms, nbytes(frame, ko), 0, lib)
+    k11_points(dev, flush)
+    one_op_a_launch("K11", lambda: FR.pad_frame(frame, GH, W))
 
     # K12: the seeded 480x270 watermark at its location-6 anchor
     wm = Watermark.from_rgba(watermark_rgba(), WM_LOCATION, W, H, dev)
@@ -3158,7 +3226,7 @@ def main() -> int:
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
     print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I "
-          "/ K6 timing points (ms between "
+          "/ K6 / K8 / K11 timing points (ms between "
           "CUDA events after an L2 flush, median of 20; bound and plain ms "
           "as in the kernels line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")

@@ -72,7 +72,17 @@ stacked seats' 68 stripes and 135 MB rows at 3840x2160, rows off 16
 bytes, frames 1 and 3 bytes into their storage, idle and fully damaged
 frames, one differing byte at each band's first and last byte and on
 both sides of a 16-byte piece boundary, and launches alternating over
-two streams) and must match it exactly, overflow flags included.
+two streams; for K8 scan blocks a stripe that are not multiples of its
+tile (6, 30, 132, 1176), the 1080p stripe's 2880 at 1 and 68 stripes,
+5760 at 4:4:4, made-up maps whose predecessors point ahead, far back,
+past M and outside any tile, with gathers out of range, and maps with
+-1 in mid-stripe, all-zero blocks, blocks with every slot nonzero, runs
+of exactly 16, 32 and 48 zeros with and without a later nonzero, values
+past the category caps, and planes 2 and 8 bytes into their storage;
+for K11 frame rows that are not multiples of 16 bytes (1366 into 1376),
+no padding at all, h = 1, grids of a byte count off 16, 2160p, sources
+0, 1, 4 and 8 bytes into their storage and grids 1 and 4 bytes into
+theirs) and must match it exactly, overflow flags included.
 Tolerance: 0.
 """
 
@@ -698,6 +708,90 @@ def test_jpeg_events(dev, geom):
           JE.jpeg_events_plain(y, *planes[1:], scan, S))
 
 
+def _k8_blocks(rng, n):
+    """``n`` zigzag blocks (n, 64) int16 that cover K8's slot cases: noise
+    blocks, all-zero blocks (EOB only), blocks with every slot nonzero (no
+    EOB), runs of exactly 16, 32 and 48 zeros with a later nonzero (ZRL)
+    and at the block's end (no ZRL), runs across the 8-slot pieces of a
+    lane, values past the category caps (AC >= 1024, DC steps >= 2048)."""
+    c = rng.integers(-40, 41, (n, 64)) * (rng.random((n, 64)) < 0.3)
+    c[:, 0] = rng.integers(-1024, 1024, n)
+    kinds = rng.integers(0, 10, n)
+    for i in range(n):
+        k = int(kinds[i])
+        if k == 1:
+            c[i] = 0                                     # EOB only
+        elif k == 2:
+            c[i] = rng.choice([-3, -1, 1, 2, 700], 64)   # no EOB
+        elif k in (3, 4, 5):
+            run = 16 * (k - 2)                           # 16, 32, 48 zeros
+            start = int(rng.integers(1, 64 - run))
+            c[i, 1:] = rng.choice([-2, 1, 5], 63)
+            c[i, start:start + run] = 0
+            if rng.random() < 0.5:
+                c[i, start + run:] = 0                   # no later nonzero
+        elif k == 6:
+            c[i, 1:] = 0                                 # zeros after DC
+            c[i, int(rng.integers(1, 64))] = int(rng.choice([-1500, 1100]))
+        elif k == 7:
+            c[i, 0] = 2047 if i % 2 else -2048           # DC steps >= 2048
+    return torch.as_tensor(c.astype(np.int16))
+
+
+#: K8 on made-up coefficients: (stripes, luma blocks high and wide a
+#: stripe, subsampling, map) with the scan map of the geometry ("real"),
+#: a made-up one whose prev_same points anywhere in the stripe (ahead,
+#: far back, past M, outside any block's tile) with out-of-range gathers
+#: ("far"), or one with -1 in mid-stripe ("breaks"). M = 6, 30, 132 and
+#: 1176 are not multiples of K8's 32 scan blocks a tile; 2880 (the
+#: 1080p stripe) at 1 and 68 stripes (4 stacked seats), 5760 at 4:4:4.
+K8_CASES = [(1, 2, 2, "420", "real"), (3, 2, 10, "420", "real"),
+            (5, 2, 22, "444", "real"), (2, 4, 98, "444", "far"),
+            (1, 8, 240, "420", "real"), (68, 8, 240, "420", "real"),
+            (17, 8, 240, "444", "real"), (4, 8, 240, "420", "far"),
+            (3, 2, 10, "420", "breaks"), (2, 8, 240, "444", "breaks")]
+
+
+@pytest.mark.parametrize("case", K8_CASES)
+def test_jpeg_events_k8_shapes_and_maps(dev, case):
+    S, bh, bw, sub, kind = case
+    rng = np.random.default_rng(S * bw + bh)
+    lay = JE.scan_layout(bh, bw, sub)
+    ny = bh * bw
+    nc = ny // 4 if sub == "420" else ny
+    maps = np.stack([lay.comp, lay.gather, lay.prev_same]).astype(np.int64)
+    M = maps.shape[1]
+    if kind == "far":
+        maps[0] = rng.integers(0, 3, M)
+        maps[1] = rng.integers(-3, max(ny, nc) + 3, M)
+        maps[2] = rng.integers(-1, M + 40, M)
+        maps[2, M // 2] = M - 1
+        maps[2, :8] = np.arange(M - 8, M)
+    elif kind == "breaks":
+        maps[2, rng.random(M) < 0.2] = -1
+    scan = torch.as_tensor(maps.astype(np.int32), device=dev)
+    planes = [_k8_blocks(rng, S * n).to(dev) for n in (ny, nc, nc)]
+    _same(JE.jpeg_events(*planes, scan, S),
+          JE.jpeg_events_plain(*planes, scan, S))
+
+
+@pytest.mark.parametrize("offset", [2, 8])
+def test_jpeg_events_on_planes_off_16_bytes(dev, offset):
+    """Coefficient planes 2 and 8 bytes into their storage (K8's
+    element-wise instantiation at M = 2880, a multiple of its tile)."""
+    S, bh, bw = 3, 8, 240
+    rng = np.random.default_rng(offset)
+    scan = JE.scan_maps(JE.scan_layout(bh, bw, "420"), dev)
+    planes = []
+    for n in (bh * bw, bh * bw // 4, bh * bw // 4):
+        src = _k8_blocks(rng, S * n).to(dev)
+        k = offset // 2
+        buf = torch.empty(src.numel() + k, dtype=torch.int16, device=dev)
+        planes.append(buf[k:].view(src.shape).copy_(src))
+    _same(JE.jpeg_events(*planes, scan, S),
+          JE.jpeg_events_plain(*[p.clone() for p in planes], scan, S))
+
+
 #: K9 also on made-up slot events: ("events", stripes, scan blocks a
 #: stripe, kind). A dense stripe has a codeword of 18..27 bits in every
 #: slot: one of 960 scan blocks takes the largest cluster (16 blocks),
@@ -853,6 +947,50 @@ def test_pad_frame(dev, src, dst):
     g = torch.empty(f.numel() + 1, dtype=torch.uint8, device=dev)[1:]
     g = g.view(f.shape).copy_(f)
     _same([FR.pad_frame(g, *dst)], [FR.pad_frame_plain(f, *dst)])
+
+
+#: K11 at more shapes, (frame h, w) -> (grid H, W): frame rows of 3w
+#: bytes not multiples of 16 (1366 into its 1376-wide grid, 53, 7, 5),
+#: h == H, w == W and both (no padding), h = 1, grids of 3HW bytes not
+#: multiples of 16 (rows of 15 and 27 bytes) and the 2160p capture
+K11_CASES = [((96, 1366), (96, 1376)), ((768, 1366), (768, 1376)),
+             ((40, 53), (40, 64)), ((37, 64), (48, 64)),
+             ((64, 64), (64, 64)), ((1, 1920), (16, 1920)),
+             ((1, 7), (3, 9)), ((3, 5), (7, 5)), ((5, 9), (5, 9)),
+             ((2160, 3840), (2176, 3840))]
+
+
+@pytest.mark.parametrize("src,dst", K11_CASES)
+@pytest.mark.parametrize("offset", [0, 1, 4, 8])
+def test_pad_frame_shapes(dev, src, dst, offset):
+    """Sources at 0, 1, 4 and 8 bytes into their storage (K11's flat
+    instantiation, its row one with 16-byte, 4-byte and funnel-shifted
+    loads)."""
+    from selkies_tpu_torch.ops import frames as FR
+    f = _jpeg_frame(dev, *src, 6)
+    buf = torch.empty(f.numel() + offset, dtype=torch.uint8, device=dev)
+    g = buf[offset:].view(f.shape).copy_(f)
+    _same([FR.pad_frame(g, *dst)], [FR.pad_frame_plain(f, *dst)])
+
+
+@pytest.mark.parametrize("src,dst", [((37, 53), (48, 64)),
+                                     ((1080, 1920), (1088, 1920)),
+                                     ((5, 7), (5, 9))])
+@pytest.mark.parametrize("offset", [1, 4])
+def test_pad_frame_into_an_unaligned_grid(dev, src, dst, offset):
+    """K11's C entry writing a grid 1 and 4 bytes into its storage (the
+    wrapper allocates an aligned one), the bytes around it untouched."""
+    from selkies_tpu_torch.ops import _cuda
+    from selkies_tpu_torch.ops import frames as FR
+    f = _jpeg_frame(dev, *src, 7)
+    H, W = dst
+    buf = torch.full((3 * H * W + offset + 5,), 77, dtype=torch.uint8,
+                     device=dev)
+    out = buf[offset:offset + 3 * H * W].view(H, W, 3)
+    _cuda.launch("pad_frame", f, out, src[0], src[1], H, W)
+    _same([out], [FR.pad_frame_plain(f, H, W)])
+    assert int((buf[:offset] != 77).sum()) == 0
+    assert int((buf[offset + 3 * H * W:] != 77).sum()) == 0
 
 
 def _wm_inputs(dev, wh, ww, seed):
