@@ -118,8 +118,13 @@ K11 at 1080p into the 1088-row grid, at 3840x2160 into 3840x2176, at
 1366x768 into 1376x768 and from a 1080p source view one byte into its
 storage, each beside ``F.pad`` of the same frame; each equal to the
 plain version, with torch.profiler traces showing that one K8 and one
-K11 launch are one device operation each (the "K3 / K4 / K16 / K5 / K19
-/ K2-P / K10 / K9 / K15 / K1 / K7 / K2-I / K6 / K8 / K11 timing points"
+K11 launch are one device operation each; K14 at 1080p (qp mixed by row,
+every other stripe sent), at qp 0 and 51 and on 4 stacked frames (272 MB
+rows); K13 at 1080p, on an idle and a fully damaged frame and on bands
+of 4 and 16 rows (K1 on the fully damaged frame as well), its bound
+counted as K1's, and a torch.profiler trace showing that one K13 launch
+is one device operation (the "K3 / K4 / K16 / K5 / K19 / K2-P / K10 /
+K9 / K15 / K1 / K7 / K2-I / K6 / K8 / K11 / K14 / K13 timing points"
 line).
 The main path's three step shapes (stock I, full-frame P band,
 one-stripe P band) are timed on the device between CUDA events, the
@@ -643,7 +648,7 @@ def bound_ms(by: int, ops: int) -> float:
 
 
 #: K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I / K6
-#: / K8 / K11 timing points beyond the kernels line:
+#: / K8 / K11 / K14 / K13 timing points beyond the kernels line:
 #: shape -> record
 POINTS: dict = {}
 
@@ -753,39 +758,45 @@ def k1_bytes(frame, prev, outs) -> int:
     return nbytes(frame, prev, *outs) + 16 * pieces
 
 
-def k1_points(f1, f0, S: int, rps: int, flush, f2s):
-    """K1 at 1080p (f1 over prev f0), on an idle frame (prev == frame),
-    and on bands of ``rps`` and ``4 * rps`` MB rows of a scrolled frame
-    (views at a stripe boundary, one stripe, as the band step hands them
-    over), each equal to the plain version (tolerance 0, prev included),
-    timed as timing points with prev restored, untimed, before each call.
-    -> (1080p ms, plain ms, bytes) for the kernels line."""
+def k1_points(f1, f0, S: int, rps: int, flush, f2s, name="csc420_damage",
+              kern=HP.csc420_damage, plain=HP.csc420_damage_plain,
+              tag="K1", ops_px: float = 10.0):
+    """A CSC + damage kernel (K1; K13 with ``name`` csc444_damage and its
+    functions) at 1080p (f1 over prev f0), on an idle frame (prev ==
+    frame), on a fully damaged one (every piece of prev differs) and on
+    bands of ``rps`` and ``4 * rps`` MB rows of a scrolled frame (views at
+    a stripe boundary, one stripe, as the band step hands them over), each
+    equal to the plain version (tolerance 0, prev included), timed as
+    timing points with prev restored, untimed, before each call.
+    ``ops_px``: operations a pixel. -> (1080p ms, plain ms, bytes) for
+    the kernels line."""
     R = f1.shape[0] // 16
     r0 = (R // 2) // rps * rps
-    cases = [("1080p", f1, f0, S), ("idle", f1, f1, S)]
+    cases = [("1080p", f1, f0, S), ("idle", f1, f1, S),
+             ("full", 255 - f0, f0, S)]
     cases += [(f"band{n}", f2s.narrow(0, 16 * r0, 16 * n),
                f1.narrow(0, 16 * r0, 16 * n), 1) for n in (rps, 4 * rps)]
     rec = None
-    for tag, frame, base, n_str in cases:
+    for case, frame, base, n_str in cases:
         pk, pp = base.clone(), base.clone()
-        ko = HP.csc420_damage(frame, pk, n_str)
+        ko = kern(frame, pk, n_str)
         err = max_abs_err(list(ko) + [pk],
-                          list(HP.csc420_damage_plain(frame, pp, n_str))
-                          + [pp])
-        check(err == 0, f"csc420_damage ({tag}) differs from plain "
-              f"(err {err})")
-        if tag == "idle":
-            check(int(ko[3].sum()) == 0, "K1 flagged an idle frame")
+                          list(plain(frame, pp, n_str)) + [pp])
+        check(err == 0, f"{name} ({case}) differs from plain (err {err})")
+        if case == "idle":
+            check(int(ko[3].sum()) == 0, f"{tag} flagged an idle frame")
+        if case == "full":
+            check(int(ko[3].sum()) == n_str, f"{tag} missed a damaged stripe")
         prev = base.clone()
-        ms = time_fn(lambda: HP.csc420_damage(frame, prev, n_str), 20,
+        ms = time_fn(lambda: kern(frame, prev, n_str), 20,
                      restore=lambda: prev.copy_(base), flush=flush,
                      hide_launch=True)
-        pms = time_fn(lambda: HP.csc420_damage_plain(frame, prev, n_str), 3,
+        pms = time_fn(lambda: plain(frame, prev, n_str), 3,
                       restore=lambda: prev.copy_(base))
         by = k1_bytes(frame, base, ko)
-        point(f"csc420_damage {tag}", ms, by,
-              40 * (frame.shape[0] * frame.shape[1] // 4), pms)
-        if tag == "1080p":
+        point(f"{name} {case}", ms, by,
+              int(ops_px * frame.shape[0] * frame.shape[1]), pms)
+        if case == "1080p":
             rec = (ms, pms, by)
     return rec
 
@@ -816,12 +827,15 @@ def device_ops(call, launches: int = 4) -> list:
 
 
 def k2i_points(planes, qp, send, rps: int, flush, sent_frac: float,
-               seats: int = 4) -> None:
-    """K2-I at qp 0 and 51 on the 1080p planes and on ``seats`` stacked
-    copies of them (qp mixed by row, every other stripe sent), each equal
-    to the plain version (tolerance 0, the whole reference planes
-    included), timed as timing points with the reference restored,
-    untimed, before each call."""
+               seats: int = 4, name: str = "mb_encode_i",
+               kern=HP.mb_encode_i, plain=HP.mb_encode_i_plain,
+               blocks: int = 24) -> None:
+    """An Intra16x16 coder (K2-I; K14 with ``name`` mb_encode_i444, its
+    functions and 48 blocks an MB) at qp 0 and 51 on the 1080p planes and
+    on ``seats`` stacked copies of them (qp mixed by row, every other
+    stripe sent), each equal to the plain version (tolerance 0, the whole
+    reference planes included), timed as timing points with the reference
+    restored, untimed, before each call."""
     stacked = [torch.cat([p] * seats) for p in planes]
     cases = [(f"qp{q}", planes, torch.full_like(qp, q), send)
              for q in (0, 51)]
@@ -831,21 +845,21 @@ def k2i_points(planes, qp, send, rps: int, flush, sent_frac: float,
         zero = [torch.zeros_like(p) for p in pl]
         kref = [t.clone() for t in zero]
         pref = [t.clone() for t in zero]
-        ko = HP.mb_encode_i(*pl, q, sd, rps, *kref)
-        po = HP.mb_encode_i_plain(*pl, q, sd, rps, *pref)
+        ko = kern(*pl, q, sd, rps, *kref)
+        po = plain(*pl, q, sd, rps, *pref)
         err = max_abs_err(list(ko) + kref, list(po) + pref)
-        check(err == 0, f"mb_encode_i ({tag}) differs from plain (err {err})")
+        check(err == 0, f"{name} ({tag}) differs from plain (err {err})")
         work = [t.clone() for t in zero]
 
         def restore():
             for w, z in zip(work, zero):
                 w.copy_(z)
-        ms = time_fn(lambda: HP.mb_encode_i(*pl, q, sd, rps, *work), 20,
+        ms = time_fn(lambda: kern(*pl, q, sd, rps, *work), 20,
                      restore=restore, flush=flush, hide_launch=True)
         R, M = q.shape[0], pl[0].shape[1] // 16
-        point(f"mb_encode_i {tag}", ms,
+        point(f"{name} {tag}", ms,
               nbytes(*pl, q, sd, *ko) + int(nbytes(*kref) * sent_frac),
-              1200 * 24 * R * M)
+              1200 * blocks * R * M)
 
 
 def k6_points(f1, f0, flush, seats: int = 4) -> None:
@@ -1176,7 +1190,8 @@ def kernel444_checks(frames, sess, grown) -> dict:
     f0, f1 = (torch.as_tensor(f).to(dev) for f in frames[:2])
     f2s = torch.roll(f1, -5, 0)
 
-    # K13 (frame f1 against prev f0: some stripes damaged)
+    # K13 (frame f1 against prev f0: some stripes damaged), then its
+    # timing points
     pk, pp = f0.clone(), f0.clone()
     ko = H4.csc444_damage(f1, pk, S)
     po = H4.csc444_damage_plain(f1, pp, S)
@@ -1185,16 +1200,18 @@ def kernel444_checks(frames, sess, grown) -> dict:
     check(0 < int(ko[3].sum()) < S, "K13 check frame should damage some "
           "stripes and not others")
     y, u, v = ko[:3]
-    prev = f0.clone()
-    ms = time_fn(lambda: H4.csc444_damage(f1, prev, S), 20,
-                 restore=lambda: prev.copy_(f0), flush=flush,
-                 hide_launch=True)
-    pms = time_fn(lambda: H4.csc444_damage_plain(f1, prev, S), 3,
-                  restore=lambda: prev.copy_(f0))
     # ~15 flops a pixel: 9 multiply-adds and the rounding
-    out["csc444_damage"] = (err, ms, pms,
-                            nbytes(f1, prev, prev, y, u, v, ko[3]),
-                            15 * g.height * g.width, None)
+    ops = 15 * g.height * g.width
+    ms, pms, by = k1_points(f1, f0, S, rps, flush, f2s, "csc444_damage",
+                            H4.csc444_damage, H4.csc444_damage_plain, "K13",
+                            15)
+    out["csc444_damage"] = (err, ms, pms, by, ops, None)
+    print(f"  csc444_damage bound: {bound_ms(by, ops):.4f} ms (the bytes it "
+          f"must move on this run's data: frame and prev read, Y/U/V and the "
+          f"flags written, and the 16-byte pieces of prev that differ); "
+          f"all-bytes bound {bound_ms(nbytes(f1, pk, pk, *ko), ops):.4f} ms")
+    kp = f0.clone()
+    one_op_a_launch("K13", lambda: H4.csc444_damage(f1, kp, S))
 
     # K14: every other stripe sent, per-row qp
     qp = torch.full((R,), sess.qp, dtype=torch.int32, device=dev)
@@ -1224,6 +1241,10 @@ def kernel444_checks(frames, sess, grown) -> dict:
     # ~1200 integer operations a 4x4 block (transforms, quant, dequant,
     # recon), 48 blocks an MB
     out["mb_encode_i444"] = (err, ms, pms, by, 1200 * 48 * R * M, None)
+    point("mb_encode_i444 1080p", ms, by, 1200 * 48 * R * M, pms)
+    k2i_points((y, u, v), qp, send, rps, flush, sent_frac,
+               name="mb_encode_i444", kern=H4.mb_encode_i444,
+               plain=H4.mb_encode_i444_plain, blocks=48)
 
     # K5's 4:4:4 entry: the 57 default candidates, stripe windows, a frame
     # scrolled by 5 rows against the I recon
@@ -3226,7 +3247,7 @@ def main() -> int:
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
     print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I "
-          "/ K6 / K8 / K11 timing points (ms between "
+          "/ K6 / K8 / K11 / K14 / K13 timing points (ms between "
           "CUDA events after an L2 flush, median of 20; bound and plain ms "
           "as in the kernels line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")

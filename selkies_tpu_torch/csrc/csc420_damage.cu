@@ -170,18 +170,7 @@ csc420_damage_kernel(const uint8_t* __restrict__ frame,
       }
     }
   }
-  // the stripe's last block to finish stores its flag: the ticket's add
-  // returns the counts of the blocks before it, so no other memory needs
-  // ordering; it then leaves the ticket at 0 for the next launch
-  const int any = __syncthreads_or(diff);
-  if (threadIdx.x == 0) {
-    const unsigned long long old =
-        atomicAdd(&k1_ticket[s], 1ull + (any ? 1ull << 32 : 0ull));
-    if (static_cast<int>(old & 0xffffffffu) == P - 1) {
-      damage[s] = (old >> 32) + any > 0;
-      k1_ticket[s] = 0ull;
-    }
-  }
+  ticket_flag(&k1_ticket[s], &damage[s], P, diff);
 }
 
 LaunchOrder order;                     // K1's launches across streams

@@ -76,47 +76,6 @@ __device__ __forceinline__ void inv4(const int* d, int* out) {
   }
 }
 
-// _quant_plane: fdiv 3 intra, 6 inter.
-__device__ __forceinline__ int quant_ac(int w, int qp, int cls, int fdiv) {
-  int qbits = 15 + qp / 6;
-  int mf = K_MF[(qp % 6) * 3 + cls];
-  int f = (1 << qbits) / fdiv;
-  int mag = ((w < 0 ? -w : w) * mf + f) >> qbits;
-  return clampi(w < 0 ? -mag : mag, -LEVEL_CLAMP, LEVEL_CLAMP);
-}
-
-// _dequant_plane; left shifts of possibly negative products are written
-// as multiplies.
-__device__ __forceinline__ int dequant_ac(int c, int qp, int cls) {
-  int ls = 16 * K_V[(qp % 6) * 3 + cls];
-  int t = qp / 6;
-  if (t >= 4) return c * ls * (1 << (t - 4));
-  return (c * ls + (1 << (3 - t))) >> (4 - t);
-}
-
-// _quant_dc_e
-__device__ __forceinline__ int quant_dc(int y, int qp) {
-  int qbits = 15 + qp / 6;
-  int mf00 = K_MF[(qp % 6) * 3];
-  int f2 = 2 * ((1 << qbits) / 3);
-  int mag = ((y < 0 ? -y : y) * mf00 + f2) >> (qbits + 1);
-  return clampi(y < 0 ? -mag : mag, -LEVEL_CLAMP, LEVEL_CLAMP);
-}
-
-// _dequant_ldc_e
-__device__ __forceinline__ int dequant_ldc(int f, int qp) {
-  int ls00 = 16 * K_V[(qp % 6) * 3];
-  int t = qp / 6;
-  if (t >= 6) return f * ls00 * (1 << (t - 6));
-  return (f * ls00 + (1 << (5 - t))) >> (6 - t);
-}
-
-// _dequant_cdc_e
-__device__ __forceinline__ int dequant_cdc(int f, int qpc) {
-  int ls00 = 16 * K_V[(qpc % 6) * 3];
-  return (f * ls00 * (1 << (qpc / 6))) >> 5;
-}
-
 // _ue_event: code_num = v + 1 in 2*bitlen(code_num) - 1 bits.
 __device__ __forceinline__ void ue_event(int v, int* pay, int* nb) {
   unsigned cn = static_cast<unsigned>(v) + 1u;
@@ -124,64 +83,9 @@ __device__ __forceinline__ void ue_event(int v, int* pay, int* nb) {
   *nb = 2 * (32 - __clz(cn)) - 1;
 }
 
-// H4 row of the 4x4 Hadamard (H4 is symmetric).
-__device__ __forceinline__ int h4(int i, int j) {
-  // rows: ++++, ++--, +--+, +-+-
-  const int sign = (0x0 | (0xC << 4) | (0x6 << 8) | (0xA << 12));
-  return ((sign >> (4 * i + j)) & 1) ? -1 : 1;
-}
-
 // se_event: signed Exp-Golomb as ue of the mapped code number.
 __device__ __forceinline__ void se_event(int v, int* pay, int* nb) {
   ue_event(v > 0 ? 2 * v - 1 : -2 * v, pay, nb);
-}
-
-// ---- 4x4 block helpers of the MB coders (K2, K14, K15)
-__device__ __forceinline__ void load4x4(const uint8_t* p, int stride, int r0,
-                                        int c0, int* x) {
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-#pragma unroll
-    for (int j = 0; j < 4; j++)
-      x[4 * i + j] = p[static_cast<size_t>(r0 + i) * stride + c0 + j];
-}
-
-__device__ __forceinline__ void store4x4(uint8_t* p, int stride, int r0,
-                                         int c0, const int* x) {
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-#pragma unroll
-    for (int j = 0; j < 4; j++)
-      p[static_cast<size_t>(r0 + i) * stride + c0 + j] =
-          static_cast<uint8_t>(x[4 * i + j]);
-}
-
-// Levels of one block in scan order into its lv slot (16 positions); the
-// first ``skip`` scan positions are left out (DC-less blocks), the tail is
-// zero-filled.
-__device__ __forceinline__ void store_scan(int16_t* slot, const int* acl,
-                                           int skip) {
-#pragma unroll
-  for (int p = 0; p < 16; p++) {
-    int q = p + skip;
-    slot[p] = static_cast<int16_t>(q < 16 ? acl[K_ZIGZAG[q]] : 0);
-  }
-}
-
-// AC-only intra path of one block: fwd, quant (fdiv 3), DC removed,
-// dequant, inverse. -> w (with the raw DC in w[0]), acl, inv.
-__device__ __forceinline__ void intra_ac(const int* x, int qp, int* w,
-                                         int* acl, int* inv) {
-  fwd4(x, w);
-  int d[16];
-  acl[0] = 0;
-  d[0] = 0;
-#pragma unroll
-  for (int k = 1; k < 16; k++) {
-    acl[k] = quant_ac(w[k], qp, K_POS_CLS[k], 3);
-    d[k] = dequant_ac(acl[k], qp, K_POS_CLS[k]);
-  }
-  inv4(d, inv);
 }
 
 __device__ __forceinline__ bool any_nz(const int* a) {
@@ -191,10 +95,10 @@ __device__ __forceinline__ bool any_nz(const int* a) {
   return nz;
 }
 
-// ---- K2-P's block design (mb_encode.cu): compile-time tables, quant
-// constants loaded once a thread, 4x4 blocks in a shared stage, levels
-// packed into whole slots, and rectangles staged with vector loads. The
-// helpers above stay as K2-I, K14 and K15 use them.
+// ---- the MB coders' block design (K2-P's, mb_encode.cu; K2-I, K14 and
+// K15 share it): compile-time tables, quant constants loaded once a
+// thread, 4x4 blocks in a shared stage, levels packed into whole slots,
+// and rectangles staged with vector loads.
 
 // zigzag scan position p -> raster index (K_ZIGZAG, as nibbles)
 __host__ __device__ constexpr int zz_raster(int p) {

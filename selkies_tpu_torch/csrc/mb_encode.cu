@@ -29,21 +29,13 @@
 // when motion is on; with zero motion the prediction is the reference
 // plane itself, which a block stages whole before it writes any recon,
 // and blocks own disjoint MBs.
-#include "cluster.cuh"
-#include "h264_common.cuh"
+#include "intra_dc.cuh"
 
 // ---------------------------------------------------------------- I frames
 // Three grids a call, one after another.
 //
-// The chains carry only the terms that depend on the prediction. Every
-// row of the 4x4 Hadamard but the first sums to 0, so with the DC terms
-// W of the 16 blocks, Hd = H (W - 16 pred J) H is H W H but for
-// Hd00 = (HWH)00 - 256 pred, and Hd00 >> 1 = ((HWH)00 >> 1) - 128 pred
-// (256 pred is even): of the 16 luma DC levels only level 00 depends on
-// pred, and H L H = Frest + level00 at every position, Frest the inverse
-// of the other 15. A luma step is pred -> level00 -> the four
-// dequantised DC terms of the right column (Frest + level00) -> the 16
-// right-edge pixels -> their sum -> the next pred. Chroma (2x2): only
+// The chains carry only the terms that depend on the prediction: luma
+// as csrc/intra_dc.cuh sets out (shared with K14). Chroma (2x2): only
 // A + C and A - C carry the two halves' preds pt and pb, so a step is
 // (pt, pb) -> levels 0 and 2 -> the right column's two dequantised DC
 // terms -> 8 edge pixels -> pt, pb.
@@ -80,7 +72,6 @@
 #define I_LS (16 * I_NB + 16)        // luma stage pitch (bytes)
 #define I_CS (8 * I_NB + 16)         // chroma stage pitch
 #define I_REC 48                     // ints of an MB's chain record
-#define I_GROUP 8                    // MBs a bulk copy group of records
 
 // an MB's record (ints): luma [0, 16) the right edge's inverse + 32
 // (block row by: [4 by, 4 by + 4)), [16, 20) Frest's right column, 20
@@ -95,97 +86,6 @@ struct IStage {
   alignas(16) int16_t dcs[I_NB][48];      // DC slots 0, 17, 18 of each MB
   int cbp_luma[I_NB], cac[I_NB], cdc[I_NB][2];
 };
-
-// _quant_dc_e and _dequant_ldc_e / _dequant_cdc_e of one QP, the table
-// entries read once: level = clamp(sign (|y| mf + f2) >> sh); dequant
-// (f ls + add) >> dsh, luma f 16V 2^(qp/6 - 6) for qp/6 >= 6 and
-// (f 16V + 2^(5 - qp/6)) >> (6 - qp/6) below, chroma (f 16V 2^(qp/6)) >> 5.
-struct QuantDC {
-  int mf, f2, sh, ls, add, dsh;
-};
-
-__device__ __forceinline__ QuantDC quant_dc_consts(int qp, bool luma) {
-  QuantDC q;
-  const int qd = qp / 6, qm = qp % 6;
-  q.mf = K_MF[qm * 3];
-  q.sh = 16 + qd;
-  q.f2 = 2 * ((1 << (15 + qd)) / 3);
-  const int ls00 = 16 * K_V[qm * 3];
-  if (luma) {
-    q.ls = qd >= 6 ? ls00 * (1 << (qd - 6)) : ls00;
-    q.add = qd >= 6 ? 0 : 1 << (5 - qd);
-    q.dsh = qd >= 6 ? 0 : 6 - qd;
-  } else {
-    q.ls = ls00 * (1 << qd);
-    q.add = 0;
-    q.dsh = 5;
-  }
-  return q;
-}
-
-__device__ __forceinline__ int quant_dcq(int y, const QuantDC& q) {
-  const int mag = ((y < 0 ? -y : y) * q.mf + q.f2) >> q.sh;
-  return clampi(y < 0 ? -mag : mag, -LEVEL_CLAMP, LEVEL_CLAMP);
-}
-
-__device__ __forceinline__ int dequant_dcq(int f, const QuantDC& q) {
-  return (f * q.ls + q.add) >> q.dsh;
-}
-
-// H4 x (rows ++++, ++--, +--+, +-+-) of four values
-__device__ __forceinline__ void had4_vec(const int* d, int* r) {
-  const int s0 = d[0] + d[1], s1 = d[2] + d[3], t0 = d[0] - d[1],
-            t1 = d[2] - d[3];
-  r[0] = s0 + s1;
-  r[1] = s0 - s1;
-  r[2] = t0 - t1;
-  r[3] = t0 + t1;
-}
-
-// one butterfly step over lanes ``m`` apart (natural Hadamard order):
-// the lane with bit m clear gets v + partner, the other partner - v
-__device__ __forceinline__ int butterfly(unsigned mask, int v, int m,
-                                         bool hi) {
-  const int p = __shfl_xor_sync(mask, v, m);
-  return hi ? p - v : v + p;
-}
-
-// the AC path of an intra block down to its inverse's right column:
-// fwd, quant (intra), dequant, the inverse's column 3 rows -> e[i] + 32
-__device__ __forceinline__ void intra_edge(const int* x, const QuantP& q,
-                                           int* e) {
-  int w[16], d[16];
-  fwd4(x, w);
-  d[0] = 0;
-#pragma unroll
-  for (int k = 1; k < 16; k++)
-    d[k] = dequant_p(quant_p(w[k], q.mf[pos_cls(k)], q.f, q.qbits),
-                     q.ls[pos_cls(k)], q.dadd, q.dsh);
-  int f[4];
-#pragma unroll
-  for (int i = 0; i < 4; i++)
-    f[i] = (d[4 * i] + d[4 * i + 2]) - (d[4 * i + 1] + (d[4 * i + 3] >> 1));
-  const int g0 = f[0] + f[2], g1 = f[0] - f[2], g2 = (f[1] >> 1) - f[3],
-            g3 = f[1] + (f[3] >> 1);
-  e[0] = g0 + g3 + 32;
-  e[1] = g1 + g2 + 32;
-  e[2] = g1 - g2 + 32;
-  e[3] = g0 - g3 + 32;
-}
-
-// zigzag position of raster position k (K_INV_ZIGZAG, as nibbles)
-__device__ __forceinline__ int zz_pos(int k) {
-  return static_cast<int>((0xfea9db83c7426510ULL >> (4 * k)) & 15);
-}
-
-// Hadamard order of natural lane p: H4's row sig(p) comes out at lane p
-__device__ __forceinline__ int sig(int p) { return (0x2130 >> (4 * p)) & 15; }
-
-// four bytes of a word
-__device__ __forceinline__ void bytes4(unsigned w, int* x) {
-#pragma unroll
-  for (int j = 0; j < 4; j++) x[j] = (w >> (8 * j)) & 0xFF;
-}
 
 // The first grid: 16 MBs of a row a block of 128 threads, 4 lanes an MB:
 // warps 0-1 luma (a lane a row of blocks), warps 2-3 chroma (a lane a
@@ -262,28 +162,9 @@ i_records_kernel(const uint8_t* __restrict__ yp,
                                      * (16 * N_BLOCKS))
               + I_REC * m + (luma ? 0 : 24 + 12 * c);
   if (luma) {
-    // (H W H) rows by lane: along the row in the lane, down the column
-    // by butterflies over the MB's four luma lanes (lane p then holds
-    // H's row sig(p))
-    const unsigned lm = 0xffffffffu;
-    int h[4], l[4], s[4];
-    had4_vec(dcs, h);
-#pragma unroll
-    for (int k = 0; k < 4; k++) {
-      h[k] = butterfly(lm, h[k], 1, by & 1);
-      h[k] = butterfly(lm, h[k], 2, by & 2);
-    }
-    // the pred-free levels (00 left out), then their inverse Frest: the
-    // same butterflies on rows in H order give rows in natural order
-#pragma unroll
-    for (int k = 0; k < 4; k++)
-      l[k] = by == 0 && k == 0 ? 0 : quant_dcq(h[k] >> 1, dy);
-    had4_vec(l, s);
-#pragma unroll
-    for (int k = 0; k < 4; k++) {
-      s[k] = butterfly(lm, s[k], 1, by & 1);
-      s[k] = butterfly(lm, s[k], 2, by & 2);
-    }
+    // (H W H) rows over the MB's four luma lanes, Frest's rows
+    int h[4], s[4];
+    dc_rows(dcs, by, dy, h, s);
     if (on) {
       reinterpret_cast<int4*>(base)[by] = make_int4(e[0], e[1], e[2], e[3]);
       base[16 + by] = s[3];
@@ -304,39 +185,14 @@ i_records_kernel(const uint8_t* __restrict__ yp,
   }
 }
 
-// The luma chain of a row on 16 lanes, lane k the right-edge pixel k
-// (block row k >> 2): each step pred -> level00 (in every lane) -> the
-// lane's block row's DC term -> its edge pixel -> the sum over the lanes
-// (one warp reduction) -> the next pred, the next MB's record loaded
-// ahead. Lane 0 stores the MB's word (pred, level00) as its header
-// slot 0.
+// The luma chain of a row (csrc/intra_dc.cuh) on 16 lanes, lane k the
+// right-edge pixel k; lane 0 stores each MB's word (pred, level00) as its
+// header slot 0.
 __device__ __forceinline__ void luma_chain(const int* rec,
                                            unsigned long long* bars, int M,
                                            int* out, int k,
                                            const QuantDC& q) {
-  int pred = 128;
-  mbar_wait(bars, 0);
-  int e = rec[k], f3 = rec[16 + (k >> 2)], h00 = rec[20];
-  for (int m0 = 0; m0 < M; m0 += I_GROUP) {
-    // the next group's records, which the group's last step loads ahead
-    if (m0 + I_GROUP < M) mbar_wait(bars + m0 / I_GROUP + 1, 0);
-#pragma unroll
-    for (int j = 0; j < I_GROUP; j++) {
-      const int m = m0 + j;
-      if (m >= M) break;
-      const int* r = rec + I_REC * (m + 1 < M ? m + 1 : m);
-      const int en = r[k], fn = r[16 + (k >> 2)], hn = r[20];
-      const int dl = quant_dcq(h00 - 128 * pred, q);
-      const int px = clip1(pred + ((e + dequant_dcq(f3 + dl, q)) >> 6));
-      const int s = __reduce_add_sync(0xFFFFu, px);
-      if (k == 0)
-        out[HDR_SLOTS * m] = pred | ((dl + 4096) << 16);
-      pred = (s + 8) >> 4;
-      e = en;
-      f3 = fn;
-      h00 = hn;
-    }
-  }
+  dc_chain<I_REC, HDR_SLOTS>(rec, rec + 16, rec + 20, bars, M, out, k, q);
 }
 
 // The chain of chroma component c on one lane: each step (pt, pb) ->
@@ -403,23 +259,10 @@ i_chain_kernel(const int16_t* __restrict__ lv, const int* __restrict__ qp_rows,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (t == 64) {
-    // the row's records, contiguous at the start of its lv
-    const int* src = reinterpret_cast<const int*>(
-        lv + static_cast<size_t>(r) * M * (16 * N_BLOCKS));
-    for (int g = 0; g < groups; g++) {
-      const int n = M - g * I_GROUP < I_GROUP ? M - g * I_GROUP : I_GROUP;
-      const unsigned bar = smem_u32(bars + g), bytes = 4 * I_REC * n;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   :: "r"(bar), "r"(bytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];"
-          :: "r"(smem_u32(rec + I_REC * I_GROUP * g)),
-             "l"(src + I_REC * I_GROUP * g), "r"(bytes), "r"(bar)
-          : "memory");
-    }
-  }
+  if (t == 64)   // the row's records, contiguous at the start of its lv
+    load_records(rec, reinterpret_cast<const int*>(
+                          lv + static_cast<size_t>(r) * M * (16 * N_BLOCKS)),
+                 bars, M, I_REC);
   const int qp = qp_rows[r];
   const int qpc = K_QPC[clampi(qp, 0, 51)];
   // the words into shared memory, out to the row's header slots at the
@@ -512,16 +355,9 @@ i_code_kernel(const uint8_t* __restrict__ yp, const uint8_t* __restrict__ up,
         (__ballot_sync(0xffffffffu, any_nz(acl)) >> (lane & 16)) & 0xFFFFu;
     if (b == 0) st.cbp_luma[mb] = m16 != 0;
     inv4(d, inv);
-    // the MB's DC terms: H W H by butterflies over its 16 lanes (lane
-    // (p, q) then holds H's (sig(p), sig(q))), the pred-free levels,
-    // and Frest back in natural order
-    int v = w[0];
-#pragma unroll
-    for (int k = 1; k < 16; k <<= 1) v = butterfly(0xffffffffu, v, k, b & k);
-    int lvl = b == 0 ? 0 : quant_dcq(v >> 1, dy);
-    int f = lvl;
-#pragma unroll
-    for (int k = 1; k < 16; k <<= 1) f = butterfly(0xffffffffu, f, k, b & k);
+    // the MB's DC terms over its 16 lanes
+    int lvl, f;
+    dc_lanes(w[0], b, dy, lvl, f);
     if (mb < nb) {
       const unsigned cw = w0;
       const int pred = static_cast<int>(cw & 0xFFFFu);

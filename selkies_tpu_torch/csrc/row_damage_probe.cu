@@ -80,18 +80,7 @@ row_damage_probe_kernel(const uint8_t* __restrict__ frame,
       for (int k = 0; k < kVec; k++) diff |= x[k] ^ y[k];
     }
   }
-  // the band's last block to finish stores its flag: the ticket's add
-  // returns the counts of the blocks before it, so no other memory needs
-  // ordering; it then leaves the ticket at 0 for the next launch
-  const int any = __syncthreads_or(diff != 0);
-  if (threadIdx.x == 0) {
-    const unsigned long long old =
-        atomicAdd(&k6_ticket[band], 1ull + (any ? 1ull << 32 : 0ull));
-    if (static_cast<int>(old & 0xffffffffu) == P - 1) {
-      out[band] = (old >> 32) + any > 0;
-      k6_ticket[band] = 0ull;
-    }
-  }
+  ticket_flag(&k6_ticket[band], &out[band], P, diff != 0);
 }
 
 LaunchOrder order;                     // K6's launches across streams

@@ -82,7 +82,17 @@ past the category caps, and planes 2 and 8 bytes into their storage;
 for K11 frame rows that are not multiples of 16 bytes (1366 into 1376),
 no padding at all, h = 1, grids of a byte count off 16, 2160p, sources
 0, 1, 4 and 8 bytes into their storage and grids 1 and 4 bytes into
-theirs) and must match it exactly, overflow flags included.
+theirs; for K14 K2-I's cases at 4:4:4 (qp 0, 51 and mixed by row on
+all-0, all-255, noise and black-and-white planes, M = 1, 5, 8, 13, 120
+and 125, R = 1 to 4, send gates all on, all off and mixed with unsent
+noise reference rows untouched, planes 1, 4 and 8 bytes into their
+storage, 1 and 4 stacked 1080p frames); for K13 idle, fully damaged and
+one-stripe-in-three frames at 17 and 68 stripes of the 1080p grid and at
+W = 90 and 7, frames 1 and 4 bytes into their storage, one differing
+byte at each stripe's first and last byte and at a 16-byte piece's
+edges, widths off 16 pixels, band views of 4 and 16 MB rows as 1 and 4
+stripes, and launches alternating over two streams) and must match it
+exactly, overflow flags included.
 Tolerance: 0.
 """
 
@@ -2351,12 +2361,12 @@ def test_k5_refuses_misaligned_planes(dev):
 
 
 # ---------------------------------------------------------------- K2-I
-def _k2i_planes(dev, H, W, kind, seed, offset=0):
+def _k2i_planes(dev, H, W, kind, seed, offset=0, cdiv=2):
     """Y, U, V of ``kind`` (noise, zero, max, binary), each ``offset``
-    bytes into its storage (0: fresh tensors)."""
+    bytes into its storage (0: fresh tensors); chroma H/cdiv x W/cdiv."""
     rng = np.random.default_rng(seed)
     out = []
-    for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2)):
+    for h, w in ((H, W), (H // cdiv, W // cdiv), (H // cdiv, W // cdiv)):
         if kind == "noise":
             a = rng.integers(0, 256, (h, w), dtype=np.uint8)
         elif kind == "binary":
@@ -2373,20 +2383,22 @@ def _k2i_planes(dev, H, W, kind, seed, offset=0):
     return out
 
 
-def _k2i_same(dev, planes, qp, send, rps, offset=0, seed=1):
-    """K2-I against plain on reference planes that start as noise (rows
-    of unsent stripes must keep it), levels, cbp, headers and the whole
-    reference planes at tolerance 0."""
+def _k2i_same(dev, planes, qp, send, rps, offset=0, seed=1, cdiv=2):
+    """K2-I (K14 with ``cdiv`` 1) against plain on reference planes that
+    start as noise (rows of unsent stripes must keep it), levels, cbp,
+    headers and the whole reference planes at tolerance 0."""
     base = _k2i_planes(dev, planes[0].shape[0], planes[0].shape[1],
-                       "noise", seed, offset)
+                       "noise", seed, offset, cdiv)
     kref = [b.clone() if not offset else b for b in base]
     pref = [b.clone() for b in base]
     before = [b.clone() for b in pref]
-    ko = HP.mb_encode_i(*planes, qp, send, rps, *kref)
-    po = HP.mb_encode_i_plain(*planes, qp, send, rps, *pref)
+    kern, plain = ((HP.mb_encode_i, HP.mb_encode_i_plain) if cdiv == 2
+                   else (H4.mb_encode_i444, H4.mb_encode_i444_plain))
+    ko = kern(*planes, qp, send, rps, *kref)
+    po = plain(*planes, qp, send, rps, *pref)
     _same(list(ko) + kref, list(po) + pref)
     rows = send.repeat_interleave(rps) == 0
-    for k, b, c in zip(kref, before, (1, 2, 2)):
+    for k, b, c in zip(kref, before, (1, cdiv, cdiv)):
         unsent = rows.repeat_interleave(16 // c)
         assert torch.equal(k[unsent].cpu(), b[unsent].cpu())
     return ko
@@ -2543,3 +2555,171 @@ def test_row_damage_probe_on_two_streams(dev):
     for frame, got in outs:
         _same([got], [HP.row_damage_probe_plain(frame, prev, R)])
         assert int(got.sum()) == 1
+
+
+# ---------------------------------------------------------------- K14
+@pytest.mark.parametrize("kind", ["noise", "zero", "max", "binary"])
+@pytest.mark.parametrize("qp", ["0", "51", "rows"])
+def test_mb_encode_i444_levels_clamp_and_edges_clip(dev, kind, qp):
+    """K14 at qp 0 and 51 and a different qp on every row (Cb and Cr at
+    K_QPC of it), on all-0, all-255, noise and black-and-white planes (DC
+    levels at LEVEL_CLAMP, edges clipped at 0 and 255), every other
+    stripe sent."""
+    H, W, rps = 128, 128, 2
+    planes = _k2i_planes(dev, H, W, kind, 5, cdiv=1)
+    q = _qp_rows(dev, H // 16, qp)
+    send = (torch.arange(H // 16 // rps, device=dev) % 2 == 0).to(
+        torch.int32)
+    lv = _k2i_same(dev, planes, q, send, rps, cdiv=1)[0]
+    if kind in ("zero", "max") and qp == "0":
+        assert int(lv[:, :, 0].abs().max()) == 2000
+
+
+@pytest.mark.parametrize("geom", [(16, 16), (16, 80), (48, 128), (32, 208),
+                                  (64, 1920), (16, 2000)])
+@pytest.mark.parametrize("gate", ["on", "off", "mixed"])
+def test_mb_encode_i444_row_widths_and_send_gates(dev, geom, gate):
+    """K14 at M = 1, 5 (odd), 8, 13 (not a multiple of the 4 MBs a tile,
+    nor of the records grid's 16), 120 and 125, R = 1 to 4, with the send
+    gates all on, all off and mixed (unsent reference rows untouched)."""
+    H, W = geom
+    R = H // 16
+    rps = 1 if R < 4 else 2
+    planes = _k2i_planes(dev, H, W, "noise", W, cdiv=1)
+    S = R // rps
+    send = {"on": torch.ones(S, dtype=torch.int32, device=dev),
+            "off": torch.zeros(S, dtype=torch.int32, device=dev),
+            "mixed": (torch.arange(S, device=dev) % 2).to(torch.int32)}[gate]
+    _k2i_same(dev, planes, _qp_rows(dev, R, "rows", W), send, rps, cdiv=1)
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8])
+@pytest.mark.parametrize("geom", [(64, 128), (32, 80)])
+def test_mb_encode_i444_on_unaligned_planes(dev, offset, geom):
+    """K14 on planes and references that start ``offset`` bytes into
+    their storage (the instantiations for planes off 16 bytes)."""
+    H, W = geom
+    planes = _k2i_planes(dev, H, W, "noise", 9, offset, cdiv=1)
+    send = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    _k2i_same(dev, planes, _qp_rows(dev, H // 16, "rows"), send,
+              H // 16 // 2, offset=offset, cdiv=1)
+
+
+@pytest.mark.parametrize("seats", [1, 4])
+def test_mb_encode_i444_at_1080p_and_on_stacked_frames(dev, seats):
+    """K14 on 1, and 4 stacked, 1920x1088 frames (68 and 272 MB rows), qp
+    mixed by row, every other stripe sent."""
+    H, W, rps = 1088 * seats, 1920, 4
+    planes = _k2i_planes(dev, H, W, "noise", 17, cdiv=1)
+    qp = torch.full((H // 16,), 25, dtype=torch.int32, device=dev)
+    qp[::3] = 10
+    send = (torch.arange(H // 16 // rps, device=dev) % 2 == 0).to(
+        torch.int32)
+    _k2i_same(dev, planes, qp, send, rps, cdiv=1)
+
+
+# ---------------------------------------------------------------- K13
+def _k13_same(frame, prev, S):
+    """K13 against its plain version on copies of ``prev`` (tolerance 0,
+    prev included) -> the kernel's flags."""
+    pk, pp = prev.clone(), prev.clone()
+    ko = H4.csc444_damage(frame, pk, S)
+    _same(list(ko) + [pk], list(H4.csc444_damage_plain(frame, pp, S)) + [pp])
+    assert torch.equal(pk, frame)
+    return ko[3].cpu().tolist()
+
+
+@pytest.mark.parametrize("geom", [(1088, 1920, 17), (1088, 1920, 68),
+                                  (64, 208, 4), (48, 90, 3), (32, 7, 2)])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_csc444_damage_idle_full_and_one_stripe_in_three(dev, geom, offset):
+    """K13 on an idle frame (no flag, prev untouched), a fully damaged one
+    (every flag) and one with one damaged stripe in three, at 17 and 68
+    stripes of the 1080p grid and widths off 16 pixels (W = 90, 7), on
+    frames 0, 1 and 4 bytes into their storage (the byte instantiation)."""
+    H, W, S = geom
+    prev = _k6_frame(dev, H, W, 1, offset)
+    frame = _k6_frame(dev, H, W, 1, offset)
+    pk = prev.clone()
+    ko = H4.csc444_damage(frame, pk, S)
+    assert int(ko[3].sum()) == 0 and torch.equal(pk, prev)
+    assert _k13_same(frame, prev, S) == [0] * S
+    full = _k6_frame(dev, H, W, 2, offset)
+    full.copy_(255 - prev)
+    assert _k13_same(full, prev, S) == [1] * S
+    sh = H // S
+    for s in range(0, S, 3):
+        frame[s * sh + sh // 2, W // 2, 1] ^= 0x40
+    assert _k13_same(frame, prev, S) == [int(s % 3 == 0) for s in range(S)]
+
+
+@pytest.mark.parametrize("W", [1920, 208, 90])
+def test_csc444_damage_one_byte_at_stripe_and_piece_edges(dev, W):
+    """One differing byte at the first and the last byte of each stripe,
+    and at the first and last byte of a 16-byte piece inside one: only
+    that stripe is flagged."""
+    H, sh = 64, 16
+    S = H // sh
+    f0, _ = _frames(dev, H, W)
+    stripe = sh * W * 3
+    spots = []
+    for s in range(S):
+        spots += [s * stripe, (s + 1) * stripe - 1]
+    spots += [stripe + 16 * 37, stripe + 16 * 37 + 15, 2 * stripe + 16 * 5 - 1]
+    for at in spots:
+        f1 = f0.clone()
+        f1.view(-1)[at] ^= 0x80
+        assert _k13_same(f1, f0, S) == [int(s == at // stripe)
+                                        for s in range(S)], at
+
+
+@pytest.mark.parametrize("W", [54, 90, 18, 2, 7])
+def test_csc444_damage_off_the_vector_path(dev, W):
+    """Widths whose rows are not whole 16-byte pieces (the byte
+    instantiation), a run cut at the row's end."""
+    f0, f1 = _frames(dev, 32, W)
+    f1[17, W - 1, 2] ^= 1
+    assert _k13_same(f1, f0, 4) == [1, 1, 1, 0]
+
+
+@pytest.mark.parametrize("rows", [4, 16])
+@pytest.mark.parametrize("stripes", [1, 4])
+def test_csc444_damage_on_band_views(dev, rows, stripes):
+    """Views of 4 and 16 MB rows at a stripe boundary, as one stripe (as
+    the band step hands them over) and as 4; the rest of prev is
+    untouched."""
+    H, W, y0 = 512, 208, 64
+    f0, f1 = _frames(dev, H, W)
+    f1 = torch.roll(f1, 3, 0)
+    bh = 16 * rows
+    pk, pp = f0.clone(), f0.clone()
+    band = f1.narrow(0, y0, bh)
+    ko = H4.csc444_damage(band, pk.narrow(0, y0, bh), stripes)
+    po = H4.csc444_damage_plain(band, pp.narrow(0, y0, bh), stripes)
+    _same(list(ko) + [pk], list(po) + [pp])
+    assert torch.equal(pk[:y0], f0[:y0]) and torch.equal(pk[y0 + bh:],
+                                                         f0[y0 + bh:])
+
+
+def test_csc444_damage_on_two_streams(dev):
+    """Launches alternating between two streams (the stripes' tickets are
+    shared module state, so the second waits for the first): every
+    launch's flags, planes and prev equal the plain version's."""
+    H, W, sh = 1088, 1920, 64
+    S = H // sh
+    frames = [_frames(dev, H, W) for _ in range(2)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for k in range(8):
+        f0, f1 = frames[k % 2]
+        f1 = f1.clone()
+        f1[sh * (k % S)] ^= 1
+        prev = f0.clone()
+        streams[k % 2].wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(streams[k % 2]):
+            outs.append((f1, f0, prev, H4.csc444_damage(f1, prev, S)))
+    torch.cuda.synchronize()
+    for f1, f0, prev, ko in outs:
+        pp = f0.clone()
+        _same(list(ko) + [prev],
+              list(H4.csc444_damage_plain(f1, pp, S)) + [pp])
