@@ -123,15 +123,20 @@ every other stripe sent), at qp 0 and 51 and on 4 stacked frames (272 MB
 rows); K13 at 1080p, on an idle and a fully damaged frame and on bands
 of 4 and 16 rows (K1 on the fully damaged frame as well), its bound
 counted as K1's, and a torch.profiler trace showing that one K13 launch
-is one device operation (the "K3 / K4 / K16 / K5 / K19 / K2-P / K10 /
-K9 / K15 / K1 / K7 / K2-I / K6 / K8 / K11 / K14 / K13 timing points"
-line).
+is one device operation; K12 with the seeded 480x270 watermark at
+location 6 of the 1080p grid and of 1366x768 in its 1376-wide grid
+(where the region's bytes start off a 4-byte word); K17 at bias 4 on
+the 1080p frame, an idle and a fully dirty one and on bands of 4 and 16
+rows; each equal to the plain version, with torch.profiler traces
+showing that one K12 and one K17 launch are one device operation each
+(the "K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I
+/ K6 / K8 / K11 / K14 / K13 / K12 / K17 timing points" line).
 The main path's three step shapes (stock I, full-frame P band,
 one-stripe P band) are timed on the device between CUDA events, the
 host's enqueue hidden behind a spin kernel, for the default session
-and for the fullcolor default session, and the JPEG step (K6-K9) on a
-full 1080p frame and an idle one (the three "step device times"
-lines). Exits non-zero on any mismatch, launch error or kernel a path
+and for the fullcolor default session, the two band steps again with
+ROI QP at bias 4, and the JPEG step (K6-K9) on a full 1080p frame and
+an idle one (the four "step device times" lines). Exits non-zero on any mismatch, launch error or kernel a path
 did not launch; the last line is the device record. Needs no network and
 one card.
 """
@@ -648,7 +653,8 @@ def bound_ms(by: int, ops: int) -> float:
 
 
 #: K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I / K6
-#: / K8 / K11 / K14 / K13 timing points beyond the kernels line:
+#: / K8 / K11 / K14 / K13 / K12 / K17 timing points beyond the kernels
+#: line:
 #: shape -> record
 POINTS: dict = {}
 
@@ -1005,7 +1011,7 @@ def kernel_checks(frames, sess, grown) -> dict:
     p_coder_points(p_planes, qp, send_rows, pred, mv, i_ref, rps, flush)
     res = {"mb_encode_i": (i_out, i_ref), "mb_encode_p": (p_out, kref)}
     out.update(roi_kernel_checks(f0, f1, p_planes, qp, send_rows, pred, mv,
-                                 i_ref, sent_frac, flush))
+                                 i_ref, sent_frac, flush, rps))
 
     # K6: the band path's probe, frame f1 against prev f0
     ko = HP.row_damage_probe(f1, f0)
@@ -1096,12 +1102,13 @@ def kernel_checks(frames, sess, grown) -> dict:
 
 
 def roi_kernel_checks(f0, f1, p_planes, qp, send_rows, pred, mv, i_ref,
-                      sent_frac, flush) -> dict:
+                      sent_frac, flush, rps: int) -> dict:
     """ROI QP's kernels at the 1080p shapes, tolerance 0, then timed:
     K2-P's per-MB-QP entry on :func:`kernel_checks`' P inputs with a
     seeded QP plane over 0..51, K18 on its headers, K17 on frame f1
     against f0 (whole frame: the band of a full-dirty frame) beside one
-    torch expression of the same damage."""
+    torch expression of the same damage, and at :func:`k17_points`'
+    other shapes."""
     dev = f1.device
     R, M = qp.shape[0], f1.shape[1] // 16
     rng = np.random.default_rng(SEED + 7)
@@ -1157,19 +1164,48 @@ def roi_kernel_checks(f0, f1, p_planes, qp, send_rows, pred, mv, i_ref,
     # K17: the whole frame as the band, QP 25 rows less bias 4
     qp_rows = torch.full((R,), 25, dtype=torch.int32, device=dev)
     ko = HP.roi_qp_plane(f1, f0, qp_rows, 4)
-    po = HP.roi_qp_plane_plain(f1, f0, qp_rows, 4)
-    err = max_abs_err([ko], [po])
-    check(err == 0, f"roi_qp_plane differs from plain (err {err})")
     check(0 < int((ko == 21).sum()) < R * M, "K17 check frame should dirty "
           "some MBs and not others")
-    ms = time_fn(lambda: HP.roi_qp_plane(f1, f0, qp_rows, 4), 20,
-                 flush=flush, hide_launch=True)
-    pms = time_fn(lambda: HP.roi_qp_plane_plain(f1, f0, qp_rows, 4), 3)
-    lib = time_fn(lambda: (f1 != f0).view(R, 16, M, 48).any(3).any(1), 20,
-                  flush=flush, hide_launch=True)
-    out["roi_qp_plane"] = (err, ms, pms, nbytes(f1, f0, qp_rows, ko),
-                           f1.numel(), lib)
+    out["roi_qp_plane"] = k17_points(f1, f0, qp_rows, flush, rps)
+    one_op_a_launch("K17", lambda: HP.roi_qp_plane(f1, f0, qp_rows, 4))
     return out
+
+
+def k17_points(f1, f0, qp_rows, flush, rps: int) -> tuple:
+    """K17 at bias 4 on the whole 1080p frame f1 against f0, on an idle
+    frame (prev equal), on a fully dirty one and on bands of ``rps`` and
+    ``4 * rps`` MB rows of f1 against f0 (views at a stripe boundary, as
+    the band step hands them over), each equal to the plain version
+    (tolerance 0), timed as timing points; the whole frame beside one
+    torch expression of the same damage. -> the kernels line's
+    record."""
+    R, M = qp_rows.shape[0], f1.shape[1] // 16
+    r0 = (R // 2) // rps * rps
+    cases = [("1080p", f1, f0, qp_rows), ("idle", f1, f1, qp_rows),
+             ("full", 255 - f0, f0, qp_rows)]
+    cases += [(f"band{n}", f1.narrow(0, 16 * r0, 16 * n),
+               f0.narrow(0, 16 * r0, 16 * n), qp_rows.narrow(0, r0, n))
+              for n in (rps, 4 * rps)]
+    rec = None
+    for tag, a, b, q in cases:
+        ko = HP.roi_qp_plane(a, b, q, 4)
+        err = max_abs_err([ko], [HP.roi_qp_plane_plain(a, b, q, 4)])
+        check(err == 0, f"roi_qp_plane ({tag}) differs from plain "
+              f"(err {err})")
+        if tag in ("idle", "full"):
+            want = 25 if tag == "idle" else 21
+            check(bool((ko == want).all()), f"K17 on the {tag} frame")
+        ms = time_fn(lambda: HP.roi_qp_plane(a, b, q, 4), 20, flush=flush,
+                     hide_launch=True)
+        pms = time_fn(lambda: HP.roi_qp_plane_plain(a, b, q, 4), 3)
+        by = nbytes(a, b, q, ko)
+        point(f"roi_qp_plane {tag}", ms, by, a.numel(), pms)
+        if tag == "1080p":
+            n = q.shape[0]
+            lib = time_fn(lambda: (a != b).view(n, 16, M, 48).any(3).any(1),
+                          20, flush=flush, hide_launch=True)
+            rec = (err, ms, pms, by, a.numel(), lib)
+    return rec
 
 
 def kernel444_checks(frames, sess, grown) -> dict:
@@ -2102,6 +2138,31 @@ def capture_path(modes=("jpeg", "h264"), path=CAPTURE_PATH,
     return stats, launches
 
 
+def k12_points(frame, wm, tag: str, flush) -> tuple:
+    """K12 blending ``wm`` into ``frame`` (a copy), equal to the plain
+    version (tolerance 0), timed as a timing point with the frame
+    restored, untimed, before each call. -> the kernels line's record."""
+    args = (wm._rgba, wm._table, wm._y0, wm._x0)
+    k, p = frame.clone(), frame.clone()
+    FR.watermark_blend(k, *args)
+    FR.watermark_blend_plain(p, *args)
+    err = max_abs_err([k], [p])
+    check(err == 0 and not torch.equal(k, frame),
+          f"watermark_blend ({tag}) differs from plain (err {err})")
+    work = frame.clone()
+    ms = time_fn(lambda: FR.watermark_blend(work, *args), 20,
+                 restore=lambda: work.copy_(frame), flush=flush,
+                 hide_launch=True)
+    pms = time_fn(lambda: FR.watermark_blend_plain(work, *args), 3,
+                  restore=lambda: work.copy_(frame))
+    region = 3 * wm.wh * wm.ww
+    # the region read and written, the RGBA image and the table read;
+    # 5 flops a byte
+    by = 2 * region + nbytes(wm._rgba, wm._table)
+    point(f"watermark_blend {tag}", ms, by, 5 * region, pms)
+    return (err, ms, pms, by, 5 * region, None)
+
+
 def frame_kernel_checks(dev) -> dict:
     """K10-K12 against their plain versions at the capture path's 1080p
     shapes (tolerance 0), then timed beside the plain version, the bound
@@ -2143,24 +2204,17 @@ def frame_kernel_checks(dev) -> dict:
 
     # K12: the seeded 480x270 watermark at its location-6 anchor
     wm = Watermark.from_rgba(watermark_rgba(), WM_LOCATION, W, H, dev)
-    args = (wm._rgb, wm._a, wm._y0, wm._x0)
-    k, p = ko.clone(), ko.clone()
-    FR.watermark_blend(k, *args)
-    FR.watermark_blend_plain(p, *args)
-    err = max_abs_err([k], [p])
-    check(err == 0 and not torch.equal(k, ko),
-          f"watermark_blend differs from plain (err {err})")
+    rec = k12_points(ko, wm, "1080p", flush)
+    out["watermark_blend"] = rec
+    # 1366x768 into its 1376-wide grid: the region's bytes start off a word
+    wm768 = Watermark.from_rgba(watermark_rgba(), WM_LOCATION, 1366, 768,
+                                dev)
+    check((wm768._y0, wm768._x0) == (482, 870), "the 1366x768 anchor moved")
+    k12_points(FR.pad_frame(FR.synthetic_frame(768, 1366, 7, dev), 768,
+                            1376), wm768, "1366x768", flush)
     work = ko.clone()
-    ms = time_fn(lambda: FR.watermark_blend(work, *args), 20,
-                 restore=lambda: work.copy_(ko), flush=flush,
-                 hide_launch=True)
-    pms = time_fn(lambda: FR.watermark_blend_plain(work, *args), 3,
-                  restore=lambda: work.copy_(ko))
-    region = 3 * wm.wh * wm.ww
-    # the region read and written, rgb and alpha read; 5 flops a byte
-    out["watermark_blend"] = (err, ms, pms,
-                              2 * region + nbytes(wm._rgb, wm._a),
-                              5 * region, None)
+    one_op_a_launch("K12", lambda: FR.watermark_blend(
+        work, wm._rgba, wm._table, wm._y0, wm._x0))
     return out
 
 
@@ -3147,6 +3201,9 @@ def main() -> int:
                                      "scroll_P": (base, seq[1][1], False),
                                      "typing_P": (base, typed, False)})
     step_times = step_device_times(dsettings, base, seq[1][1], typed)
+    rsettings = dataclasses.replace(dsettings, h264_roi_qp=True,
+                                    h264_roi_qp_bias=ROI_RUNS[0][0])
+    rstep_times = step_device_times(rsettings, base, seq[1][1], typed)
     fdsettings = dataclasses.replace(dsettings, fullcolor=True)
     fstep_times = step_device_times(fdsettings, base, seq[1][1], typed)
     ftimes = frame_times(fdsettings, {"I": (base, base, True),
@@ -3188,6 +3245,11 @@ def main() -> int:
     print("step device times, default configuration (ms between CUDA "
           f"events, {g.width}x{g.height}, stock caps, L2 flushed, median of "
           "7): " + json.dumps(step_times))
+    print(f"step device times, roi configuration (bias {ROI_RUNS[0][0]}: "
+          "the default one's band steps with K17, K2-P's per-MB-QP entry "
+          "and K18, its stock I step the default one's; ms between CUDA "
+          f"events, {g.width}x{g.height}, stock caps, L2 flushed, median "
+          "of 7): " + json.dumps(rstep_times))
     print("step device times, fullcolor default configuration (ms between "
           f"CUDA events, {g.width}x{g.height}, stock 4:4:4 caps, L2 "
           "flushed, median of 7): " + json.dumps(fstep_times))
@@ -3247,7 +3309,7 @@ def main() -> int:
               + (f", library {lib:.4f} ms" if lib is not None else "")
               + ")")
     print("K3 / K4 / K16 / K5 / K19 / K2-P / K10 / K9 / K15 / K1 / K7 / K2-I "
-          "/ K6 / K8 / K11 / K14 / K13 timing points (ms between "
+          "/ K6 / K8 / K11 / K14 / K13 / K12 / K17 timing points (ms between "
           "CUDA events after an L2 flush, median of 20; bound and plain ms "
           "as in the kernels line): " + json.dumps(POINTS))
     print(f"roi path launches: {json.dumps(roi['launches'])}")

@@ -1,5 +1,6 @@
-"""The floors of K8 (``csrc/jpeg_events.cu``) and K11
-(``csrc/pad_frame.cu``) under chip_smoke's timing protocol, and K8's
+"""The floors of K8 (``csrc/jpeg_events.cu``), K11
+(``csrc/pad_frame.cu``), K12 (``csrc/watermark_blend.cu``) and K17
+(``csrc/roi_qp_plane.cu``) under chip_smoke's timing protocol, and K8's
 phases in cycles, on one NVIDIA card.
 
     python3 floor_probe.py [--k8-source PATH]
@@ -22,6 +23,14 @@ host's enqueue. This script times, under the same protocol (median of
   16-byte copy kernel of the frame and the zero tail, 4 pieces a thread
   in flight (plain and streaming stores), and ``cudaMemcpyAsync`` (device
   to device) of the frame with a ``cudaMemsetAsync`` of the tail;
+- K12's floors with the seeded 480x270 watermark at location 6 of the
+  1080p grid and of 1366x768 in its 1376-wide grid: the region's
+  16-byte pieces read and written back in place (as if its rows started
+  on 16 bytes) and the RGBA image's read, 4 or 1 pieces a thread (plain
+  and streaming stores);
+- K17's floors: both bands read by 16-byte pieces and ORed, 4 or 1
+  pairs a thread, for the whole 1088-row grid and bands of 16 and 4 MB
+  rows of 1920 pixels;
 - K8's phases: an instrumented copy of ``csrc/jpeg_events.cu`` (and of
   ``--k8-source``, e.g. an earlier revision's) with ``clock64`` marks at
   its phase boundaries, each mark waiting for the values the phase
@@ -124,6 +133,63 @@ __global__ void __launch_bounds__(256) copy16(const uint4* src, uint4* dst,
       if (q0 + 256 * k < n) put<CS>(dst + q0 + 256 * k, v[k]);
   }
 }
+// K12's traffic: the region's 16-byte pieces read and written back in
+// place (rows of rp pieces at a stride of `stride` bytes), the RGBA
+// image's pieces read; U items a thread in flight
+template <int U, bool CS>
+__global__ void __launch_bounds__(256) k12_floor(uint8_t* region,
+                                                 const uint4* rgba,
+                                                 long long stride, int rp,
+                                                 long long n_reg,
+                                                 long long n, int* flag) {
+  unsigned acc = 0;
+  for (long long q0 = blockIdx.x * 256LL * U + threadIdx.x; q0 < n;
+       q0 += 256LL * U * gridDim.x) {
+    uint4 v[U];
+    uint4* at[U];
+#pragma unroll
+    for (int k = 0; k < U; k++) {
+      const long long q = q0 + 256 * k;
+      at[k] = nullptr;
+      v[k] = make_uint4(0, 0, 0, 0);
+      if (q < n_reg) {
+        at[k] = reinterpret_cast<uint4*>(region + (q / rp) * stride) + q % rp;
+        v[k] = *at[k];
+      } else if (q < n) {
+        v[k] = rgba[q - n_reg];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; k++) {
+      if (at[k]) put<CS>(at[k], v[k]);
+      else acc |= v[k].x ^ v[k].y ^ v[k].z ^ v[k].w;
+    }
+  }
+  if (acc == 0x9e3779b9u) *flag = 1;
+}
+// K17's traffic: both bands' 16-byte pieces read and ORed, U pairs a
+// thread in flight
+template <int U>
+__global__ void __launch_bounds__(256) k17_floor(const uint4* a,
+                                                 const uint4* b, long long n,
+                                                 int* flag) {
+  unsigned acc = 0;
+  for (long long q0 = blockIdx.x * 256LL * U + threadIdx.x; q0 < n;
+       q0 += 256LL * U * gridDim.x) {
+    uint4 x[U], y[U];
+#pragma unroll
+    for (int k = 0; k < U; k++) {
+      const long long q = q0 + 256 * k;
+      x[k] = q < n ? a[q] : make_uint4(0, 0, 0, 0);
+      y[k] = q < n ? b[q] : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < U; k++)
+      acc |= (x[k].x ^ y[k].x) | (x[k].y ^ y[k].y) | (x[k].z ^ y[k].z) |
+             (x[k].w ^ y[k].w);
+  }
+  if (acc == 0x9e3779b9u) *flag = 1;
+}
 int resident(const void* fn) {
   int per_sm = 0, sms = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 256, 0);
@@ -162,6 +228,25 @@ void run_copy(int cs) {
   auto fn = cs ? copy16<true> : copy16<false>;
   fn<<<g_grid, 256>>>(reinterpret_cast<const uint4*>(g_in),
                       reinterpret_cast<uint4*>(g_out), g_a, g_b);
+}
+long long g_stride;
+int g_rp;
+template <int U>
+void run_k12(int cs) {
+  auto fn = cs ? k12_floor<U, true> : k12_floor<U, false>;
+  fn<<<g_grid, 256>>>(g_out, reinterpret_cast<const uint4*>(g_in), g_stride,
+                      g_rp, g_a, g_b, g_flag);
+}
+template <int U>
+void run_k17(int) {
+  k17_floor<U><<<g_grid, 256>>>(reinterpret_cast<const uint4*>(g_in),
+                                reinterpret_cast<const uint4*>(g_out), g_a,
+                                g_flag);
+}
+int grid_for(long long items, int per_thread, int res) {
+  const long long want = (items + 256LL * per_thread - 1) /
+                         (256LL * per_thread);
+  return static_cast<int>(want < res ? want : res);
 }
 void run_memcpy(int) {
   cudaMemcpyAsync(g_out, g_in, 16 * g_a, cudaMemcpyDeviceToDevice);
@@ -209,6 +294,44 @@ int main() {
            pad_names[c], timed(l2, e0, e1, 1, run_copy));
     printf("K11 floor %s memcpy + memset|%.4f\n", pad_names[c],
            timed(l2, e0, e1, 0, run_memcpy));
+  }
+  // K12: the seeded 480x270 watermark at location 6 of the 1080p grid
+  // and of 1366x768 in its 1376-wide grid (region rows of 90 pieces; the
+  // floor takes them 16-byte aligned), its RGBA image read
+  const char* k12_names[] = {"1080p", "1366x768"};
+  const long long k12_stride[] = {1920 * 3, 1376 * 3};
+  for (int c = 0; c < 2; c++) {
+    g_stride = k12_stride[c];
+    g_rp = 90;
+    g_a = 270LL * 90;                          // region pieces
+    g_b = g_a + 270LL * 480 * 4 / 16;          // and the RGBA image's
+    for (int cs = 0; cs < 2; cs++) {
+      g_grid = grid_for(g_b, 4, resident(reinterpret_cast<const void*>(
+                                    k12_floor<4, false>)));
+      printf("K12 floor %s, 4 pieces a thread%s|%.4f\n", k12_names[c],
+             cs ? ", streaming stores" : "", timed(l2, e0, e1, cs,
+                                                    run_k12<4>));
+      g_grid = grid_for(g_b, 1, resident(reinterpret_cast<const void*>(
+                                    k12_floor<1, false>)));
+      printf("K12 floor %s, 1 piece a thread%s|%.4f\n", k12_names[c],
+             cs ? ", streaming stores" : "", timed(l2, e0, e1, cs,
+                                                    run_k12<1>));
+    }
+  }
+  // K17: both bands read, the whole 1088-row grid and bands of 16 and 4
+  // MB rows of 1920 pixels
+  const char* k17_names[] = {"1080p", "band16", "band4"};
+  const long long k17_rows[] = {1088, 256, 64};
+  for (int c = 0; c < 3; c++) {
+    g_a = k17_rows[c] * 1920 * 3 / 16;
+    g_grid = grid_for(g_a, 4, resident(reinterpret_cast<const void*>(
+                                  k17_floor<4>)));
+    printf("K17 floor %s, 4 pairs a thread|%.4f\n", k17_names[c],
+           timed(l2, e0, e1, 0, run_k17<4>));
+    g_grid = grid_for(g_a, 1, resident(reinterpret_cast<const void*>(
+                                  k17_floor<1>)));
+    printf("K17 floor %s, 1 pair a thread|%.4f\n", k17_names[c],
+           timed(l2, e0, e1, 0, run_k17<1>));
   }
   return cudaGetLastError() != cudaSuccess;
 }

@@ -9,60 +9,111 @@
 // qp_rows[:, None] - roi_qp, qp_rows[:, None]), 8, 48)).
 //
 // Bound on the H100: bytes (the band of the frame and of prev read once,
-// 2 x 6.27 MB for a whole 1920x1088 frame; an or per byte). Design: one
-// block per segment of eight MBs of an MB row, one warp per MB. The MB's
-// 16 pixel rows are 48 contiguous bytes each: 48 16-byte vectors, which
-// the warp's lanes XOR (lane l takes vectors l and l + 32), then one
-// __any_sync and lane 0 writes the MB's QP. It runs before K1 on the same
-// stream, so prev is still the previous frame. Pointers that are not
-// 16-byte aligned take a byte loop (a row of MBs is 48 * M bytes, always
-// a multiple of 16).
+// 2 x 6.27 MB for a whole 1920x1088 frame; an or per byte). Design: a
+// block of 384 threads a segment of S MBs of an MB row (S = 32, 16 or 8:
+// the largest that still gives every SM a block, so a whole frame runs
+// 32 MBs a block, 272 blocks at 1080p, and a band of a few rows spreads
+// over the card): the segment's 16 pixel rows are runs of 48 * S
+// contiguous bytes, a thread one 16-byte column of 16 * S / 128 of those
+// rows, so a warp's loads cover whole 32-byte sectors of one or two
+// pixel rows. A thread issues all its loads of the frame and prev before
+// its first XOR; a thread that finds a difference marks its MB in shared
+// memory, and after one barrier a thread an MB writes its QP. It runs
+// before K1 on the same stream, so prev is still the previous frame.
+// Pointers that are not 16-byte aligned take a second instantiation with
+// byte loads (a row of MBs is 48 * M bytes, always a multiple of 16).
 #include "h264_common.cuh"
 
-#define ROI_MBS_PER_BLOCK 8
+namespace {
 
-__global__ void roi_qp_plane_kernel(const uint8_t* __restrict__ frame,
-                                    const uint8_t* __restrict__ prev,
-                                    const int* __restrict__ qp_rows,
-                                    int* __restrict__ qp_mb, int M, int bias,
-                                    int vec) {
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * ROI_MBS_PER_BLOCK + (threadIdx.x >> 5);
-  const int r = blockIdx.y;
-  if (m >= M) return;                          // whole warp leaves together
+constexpr int kThreads = 384;
+
+template <int S, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+roi_qp_plane_kernel(const uint8_t* __restrict__ frame,
+                    const uint8_t* __restrict__ prev,
+                    const int* __restrict__ qp_rows, int* __restrict__ qp_mb,
+                    int M, int bias) {
+  constexpr int C = 3 * S;               // 16-byte columns of a segment row
+  constexpr int G = kThreads / C;        // row groups
+  constexpr int K = 16 / G;              // pixel rows (pairs) a thread
+  static_assert(kThreads % C == 0 && 16 % G == 0, "segment shape");
+  __shared__ int dirty[S];
+  const int r = blockIdx.y, m0 = blockIdx.x * S;
+  const int mbs = min(S, M - m0);
+  const int t = threadIdx.x, c = t % C, g = t / C;
+  const int q = t < mbs ? __ldg(qp_rows + r) : 0;
   const size_t row_bytes = static_cast<size_t>(M) * 48;
-  const size_t base = static_cast<size_t>(r) * 16 * row_bytes
-                      + static_cast<size_t>(m) * 48;
+  const size_t base = (static_cast<size_t>(r) * 16 + g) * row_bytes
+                      + static_cast<size_t>(m0) * 48 + 16 * c;
   unsigned diff = 0;
-  if (vec) {
-    for (int i = lane; i < 48; i += 32) {
-      const size_t off = base + (i / 3) * row_bytes + (i % 3) * 16;
-      const uint4 x = *reinterpret_cast<const uint4*>(frame + off);
-      const uint4 y = *reinterpret_cast<const uint4*>(prev + off);
-      diff |= (x.x ^ y.x) | (x.y ^ y.y) | (x.z ^ y.z) | (x.w ^ y.w);
-    }
-  } else {
-    for (int i = lane; i < 768; i += 32) {
-      const size_t off = base + (i / 48) * row_bytes + (i % 48);
-      diff |= frame[off] ^ prev[off];
+  if (c < 3 * mbs) {
+    if (VEC) {
+      uint4 x[K], y[K];
+#pragma unroll
+      for (int k = 0; k < K; k++) {
+        const size_t off = base + static_cast<size_t>(k) * G * row_bytes;
+        x[k] = __ldg(reinterpret_cast<const uint4*>(frame + off));
+        y[k] = __ldg(reinterpret_cast<const uint4*>(prev + off));
+      }
+#pragma unroll
+      for (int k = 0; k < K; k++)
+        diff |= (x[k].x ^ y[k].x) | (x[k].y ^ y[k].y) | (x[k].z ^ y[k].z) |
+                (x[k].w ^ y[k].w);
+    } else {
+      for (int k = 0; k < K; k++) {
+        const size_t off = base + static_cast<size_t>(k) * G * row_bytes;
+        for (int b = 0; b < 16; b++) diff |= frame[off + b] ^ prev[off + b];
+      }
     }
   }
-  const bool dirty = __any_sync(0xffffffffu, diff != 0);
-  if (lane == 0) {
-    const int q = qp_rows[r];
-    qp_mb[static_cast<size_t>(r) * M + m] = clampi(dirty ? q - bias : q, 8,
-                                                   48);
-  }
+  if (t < S) dirty[t] = 0;
+  __syncthreads();
+  if (diff) dirty[c / 3] = 1;
+  __syncthreads();
+  if (t < mbs)
+    qp_mb[static_cast<size_t>(r) * M + m0 + t] =
+        clampi(dirty[t] ? q - bias : q, 8, 48);
 }
+
+template <int S>
+void launch(const uint8_t* frame, const uint8_t* prev, const int* qp_rows,
+            int* qp_mb, int R, int M, int bias, bool vec, cudaStream_t st) {
+  const dim3 grid((M + S - 1) / S, R);
+  if (vec)
+    roi_qp_plane_kernel<S, true><<<grid, kThreads, 0, st>>>(
+        frame, prev, qp_rows, qp_mb, M, bias);
+  else
+    roi_qp_plane_kernel<S, false><<<grid, kThreads, 0, st>>>(
+        frame, prev, qp_rows, qp_mb, M, bias);
+}
+
+// SMs of each device
+int sm_count[64];
+
+}  // namespace
 
 extern "C" int roi_qp_plane(const uint8_t* frame, const uint8_t* prev,
                             const int* qp_rows, int* qp_mb, int R, int M,
                             int bias, void* stream) {
-  const int vec = ((reinterpret_cast<uintptr_t>(frame) |
-                    reinterpret_cast<uintptr_t>(prev)) & 15) == 0;
-  dim3 grid((M + ROI_MBS_PER_BLOCK - 1) / ROI_MBS_PER_BLOCK, R);
-  roi_qp_plane_kernel<<<grid, 32 * ROI_MBS_PER_BLOCK, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      frame, prev, qp_rows, qp_mb, M, bias, vec);
+  if (R <= 0 || M <= 0 || R > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!sm_count[dev])
+    cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  const long long sms = sm_count[dev] > 0 ? sm_count[dev] : 1;
+  const bool vec = ((reinterpret_cast<uintptr_t>(frame) |
+                     reinterpret_cast<uintptr_t>(prev)) & 15) == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto blocks = [&](int S) { return 1LL * R * ((M + S - 1) / S); };
+  if (blocks(32) >= sms)
+    launch<32>(frame, prev, qp_rows, qp_mb, R, M, bias, vec, st);
+  else if (blocks(16) >= sms)
+    launch<16>(frame, prev, qp_rows, qp_mb, R, M, bias, vec, st);
+  else
+    launch<8>(frame, prev, qp_rows, qp_mb, R, M, bias, vec, st);
   return static_cast<int>(cudaGetLastError());
 }

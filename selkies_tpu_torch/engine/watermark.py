@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..ops.frames import watermark_blend
+from ..ops.frames import blend_table, watermark_blend
 from .readback import upload
 
 logger = logging.getLogger("selkies_tpu_torch.engine.watermark")
@@ -72,12 +72,10 @@ class Watermark:
                              f"{rgba.shape}")
         self.wh, self.ww = rgba.shape[0], rgba.shape[1]
         device = resolve_device(device)
-        # formed in float32 on the host exactly as the reference forms
-        # them: float32(A) / 255 rounds once, in float32
-        self._rgb = upload(np.ascontiguousarray(
-            rgba[..., :3].astype(np.float32)), device)
-        self._a = upload(np.ascontiguousarray(
-            rgba[..., 3:4].astype(np.float32) / 255.0), device)
+        # a copy of the decoded image as it is, and (a, 1 - a) by alpha
+        # byte, formed in float32 as the reference forms them from it
+        self._rgba = upload(np.array(rgba, np.uint8, order="C"), device)
+        self._table = upload(blend_table(), device)
         self._y0, self._x0 = _anchor(location, frame_w, frame_h,
                                      self.ww, self.wh)
 
@@ -87,8 +85,8 @@ class Watermark:
         over and it is blended in place; otherwise (a source's cached
         buffer, a caller's array) a copy is stamped and ``frame`` is left
         as it is."""
-        return watermark_blend(frame if owned else frame.clone(), self._rgb,
-                               self._a, self._y0, self._x0)
+        return watermark_blend(frame if owned else frame.clone(),
+                               self._rgba, self._table, self._y0, self._x0)
 
 
 def maybe_load(settings, frame_w: int, frame_h: int, device=None):

@@ -24,6 +24,7 @@ PyTorch version beside it (``*_plain``) only for tensors on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
@@ -167,12 +168,20 @@ def pad_frame(frame, height: int, width: int) -> torch.Tensor:
 # K12: the watermark blend
 # ---------------------------------------------------------------------------
 
-def _check_blend(frame, rgb, alpha, y0: int, x0: int):
+def blend_table() -> torch.Tensor:
+    """(256, 2) float32 on the CPU: row A is (a, 1 - a) for alpha byte A,
+    formed as the reference forms them: a = float32(A) / 255, then
+    1 - a in float32, each rounded once."""
+    a = np.arange(256, dtype=np.float32) / np.float32(255)
+    return torch.as_tensor(np.stack([a, np.float32(1) - a], axis=1))
+
+
+def _check_blend(frame, rgba, table, y0: int, x0: int):
     H, W = int(frame.shape[0]), int(frame.shape[1])
-    wh, ww = int(rgb.shape[0]), int(rgb.shape[1])
+    wh, ww = int(rgba.shape[0]), int(rgba.shape[1])
     _check(frame, "frame", torch.uint8, (H, W, 3), frame.device)
-    _check(rgb, "rgb", torch.float32, (wh, ww, 3), frame.device)
-    _check(alpha, "alpha", torch.float32, (wh, ww, 1), frame.device)
+    _check(rgba, "rgba", torch.uint8, (wh, ww, 4), frame.device)
+    _check(table, "table", torch.float32, (256, 2), frame.device)
     if not (0 < wh <= H and 0 < ww <= W):
         raise ValueError(f"watermark {ww}x{wh} does not fit the frame "
                          f"{W}x{H}")
@@ -187,25 +196,31 @@ def _slice_start(start: int, dim: int, size: int) -> int:
     return min(max(start, 0), dim - size)
 
 
-def watermark_blend_plain(frame, rgb, alpha, y0: int, x0: int):
-    """Blend ``rgb`` (wh, ww, 3) float32 with ``alpha`` (wh, ww, 1)
-    float32 into ``frame`` at (y0, x0), in place: ``region * (1 - a) +
-    rgb * a`` in float32, rounded half to even, clipped. -> ``frame``."""
-    y0, x0 = _check_blend(frame, rgb, alpha, y0, x0)
-    wh, ww = rgb.shape[0], rgb.shape[1]
+def watermark_blend_plain(frame, rgba, table, y0: int, x0: int):
+    """Blend ``rgba`` (wh, ww, 4) uint8 into ``frame`` at (y0, x0), in
+    place, with (a, 1 - a) = ``table[A]`` (:func:`blend_table`):
+    ``region * (1 - a) + R * a`` in float32, each product and the sum
+    rounded once, rounded half to even, clipped. -> ``frame``."""
+    y0, x0 = _check_blend(frame, rgba, table, y0, x0)
+    wh, ww = rgba.shape[0], rgba.shape[1]
     region = frame[y0:y0 + wh, x0:x0 + ww]
-    out = region.to(torch.float32) * (1.0 - alpha) + rgb * alpha
+    t = table[rgba[..., 3].to(torch.int64)]
+    a, oma = t[..., 0:1], t[..., 1:2]
+    out = region.to(torch.float32) * oma + rgba[..., :3].to(torch.float32) * a
     region.copy_(torch.clamp(torch.round(out), 0, 255).to(torch.uint8))
     return frame
 
 
-def watermark_blend(frame, rgb, alpha, y0: int, x0: int):
+def watermark_blend(frame, rgba, table, y0: int, x0: int):
     """K12 for a CUDA ``frame`` (in place), else
     :func:`watermark_blend_plain`. -> ``frame``."""
-    y0, x0 = _check_blend(frame, rgb, alpha, y0, x0)
+    y0, x0 = _check_blend(frame, rgba, table, y0, x0)
     if _on_cpu(frame):
-        return watermark_blend_plain(frame, rgb, alpha, y0, x0)
+        return watermark_blend_plain(frame, rgba, table, y0, x0)
+    if rgba.data_ptr() % 4 or table.data_ptr() % 16:
+        raise ValueError("watermark_blend: rgba must start on 4 bytes and "
+                         "the table on 16")
     H, W = frame.shape[0], frame.shape[1]
-    _cuda.launch("watermark_blend", frame, rgb, alpha, H, W, y0, x0,
-                 rgb.shape[0], rgb.shape[1])
+    _cuda.launch("watermark_blend", frame, rgba, table, H, W, y0, x0,
+                 rgba.shape[0], rgba.shape[1])
     return frame

@@ -6,10 +6,12 @@ package's.
   reference's jitted ``_synthetic_fn``, ``_padder`` and ``_blender``:
   geometries under and over 96 rows and 1080p, ticks whose int32
   products wrap, the blend over all 2^24 (region, watermark, alpha) byte
-  triples and at clamped anchors;
+  triples, for every alpha byte at an odd width and an anchor off a
+  4-byte word, and at clamped anchors; its (a, 1 - a) table against
+  the reference's float32 alpha;
 - the port's ``Watermark`` against the reference's, from PNGs written
   with PIL: all seven locations, a PNG larger than a quarter of the frame,
-  the array constructor;
+  the array constructor, a seeded RGBA through both packages;
 - the frame sources (``SyntheticSource``, ``ArraySource``, ``make_source``
   and its refusal of the unported Wayland source);
 - the copied stdlib modules (pipeline ring, content classifier, fault
@@ -137,14 +139,49 @@ def _blend_inputs(rgba):
             rgba[..., 3:4].astype(np.float32) / 255.0)
 
 
+def _table():
+    return F.blend_table()
+
+
 def test_blend_equals_reference_on_every_byte_triple():
     frame, rgba = _all_triples()
     rgb, a = _blend_inputs(rgba)
     assert a.dtype == np.float32
     want = np.asarray(J_wm._blender(0, 0, *rgb.shape[:2])(
         jnp.asarray(frame), jnp.asarray(rgb), jnp.asarray(a)))
-    got = F.watermark_blend(torch.as_tensor(frame), torch.as_tensor(rgb),
-                            torch.as_tensor(a), 0, 0)
+    got = F.watermark_blend(torch.as_tensor(frame), torch.as_tensor(rgba),
+                            _table(), 0, 0)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_blend_table_is_the_references_alpha():
+    """Row A of the table is the reference's a = float32(A) / 255 and
+    its 1 - a in float32, bit for bit."""
+    rgba = np.zeros((1, 256, 4), np.uint8)
+    rgba[0, :, 3] = np.arange(256)
+    _, a = _blend_inputs(rgba)
+    t = _table().numpy()
+    assert t.dtype == np.float32 and t.shape == (256, 2)
+    assert np.array_equal(t[:, 0].view(np.uint32), a[0, :, 0].view(np.uint32))
+    oma = np.asarray(1.0 - jnp.asarray(a))[0, :, 0]
+    assert np.array_equal(t[:, 1].view(np.uint32), oma.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_table_blend_equals_reference_for_every_alpha(seed):
+    """The table-based plain blend against the reference's ``_blender``
+    on a seeded region and watermark, row A of the watermark at alpha A:
+    every alpha byte over random region and watermark bytes, an odd
+    width and an anchor whose bytes start off a 4-byte word."""
+    rng = np.random.default_rng(seed)
+    frame = rng.integers(0, 256, (300, 61, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, (256, 37, 4), dtype=np.uint8)
+    rgba[..., 3] = np.arange(256, dtype=np.uint8)[:, None]
+    y0, x0 = 23, 5 + seed
+    want = np.asarray(J_wm._blender(y0, x0, 256, 37)(
+        jnp.asarray(frame), *map(jnp.asarray, _blend_inputs(rgba))))
+    got = F.watermark_blend(torch.as_tensor(frame.copy()),
+                            torch.as_tensor(rgba), _table(), y0, x0)
     assert np.array_equal(got.numpy(), want)
 
 
@@ -155,23 +192,24 @@ def test_blend_equals_reference_on_every_byte_triple():
 def test_blend_clamps_the_anchor_like_dynamic_slice(y0, x0):
     rng = np.random.default_rng(abs(y0 * 100 + x0))
     frame = rng.integers(0, 256, (48, 80, 3), dtype=np.uint8)
-    rgb, a = _blend_inputs(rng.integers(0, 256, (12, 20, 4),
-                                        dtype=np.uint8))
+    rgba = rng.integers(0, 256, (12, 20, 4), dtype=np.uint8)
+    rgb, a = _blend_inputs(rgba)
     want = np.asarray(J_wm._blender(y0, x0, 12, 20)(
         jnp.asarray(frame), jnp.asarray(rgb), jnp.asarray(a)))
     got = F.watermark_blend(torch.as_tensor(frame.copy()),
-                            torch.as_tensor(rgb), torch.as_tensor(a), y0, x0)
+                            torch.as_tensor(rgba), _table(), y0, x0)
     assert np.array_equal(got.numpy(), want)
 
 
 def test_blend_checks_its_input():
     frame = torch.zeros((16, 16, 3), dtype=torch.uint8)
-    rgb = torch.zeros((20, 4, 3))
+    rgba = torch.zeros((20, 4, 4), dtype=torch.uint8)
     with pytest.raises(ValueError):
-        F.watermark_blend(frame, rgb, torch.zeros((20, 4, 1)), 0, 0)
+        F.watermark_blend(frame, rgba, _table(), 0, 0)
     with pytest.raises(TypeError):
-        F.watermark_blend(frame, rgb[:8].double(), torch.zeros((8, 4, 1)),
-                          0, 0)
+        F.watermark_blend(frame, rgba[:8].float(), _table(), 0, 0)
+    with pytest.raises(ValueError):
+        F.watermark_blend(frame, rgba[:8], _table()[:128], 0, 0)
 
 
 def test_plain_versions_launch_no_kernel():
@@ -179,7 +217,8 @@ def test_plain_versions_launch_no_kernel():
     F.synthetic_frame(48, 64, 3, "cpu")
     F.pad_frame(torch.zeros((8, 8, 3), dtype=torch.uint8), 16, 16)
     F.watermark_blend(torch.zeros((8, 8, 3), dtype=torch.uint8),
-                      torch.zeros((4, 4, 3)), torch.zeros((4, 4, 1)), 0, 0)
+                      torch.zeros((4, 4, 4), dtype=torch.uint8), _table(),
+                      0, 0)
     assert _cuda.LAUNCHES == before and _cuda._build_info == {}
 
 
@@ -238,6 +277,27 @@ def test_watermark_from_rgba_equals_the_png(tmp_path):
     with pytest.raises(ValueError):
         T_wm.Watermark.from_rgba(rgba[..., :3], 6, FRAME_W, FRAME_H,
                                  "cpu")
+
+
+@pytest.mark.parametrize("loc", [0, 4, 6])
+def test_watermark_from_seeded_rgba_equals_reference(tmp_path, loc):
+    """A seeded RGBA (odd width, every alpha byte present) through both
+    packages: the reference's ``Watermark`` from it as a PNG, the port's
+    from the array; the same anchor and the same stamped frame."""
+    rng = np.random.default_rng(40 + loc)
+    rgba = rng.integers(0, 256, (13, 23, 4), dtype=np.uint8)
+    rgba.reshape(-1, 4)[:256, 3] = np.arange(256, dtype=np.uint8)
+    path = tmp_path / "seeded.png"
+    Image.fromarray(rgba, "RGBA").save(path)
+    ref = J_wm.Watermark(str(path), loc, FRAME_W, FRAME_H)
+    port = T_wm.Watermark.from_rgba(rgba, loc, FRAME_W, FRAME_H, "cpu")
+    assert (port.wh, port.ww, port._y0, port._x0) \
+        == (ref.wh, ref.ww, ref._y0, ref._x0)
+    assert port._rgba.dtype == torch.uint8 and torch.equal(
+        port._rgba, torch.as_tensor(rgba))
+    frame = _grid_frame(loc + 5)
+    assert np.array_equal(port.apply(torch.as_tensor(frame)).numpy(),
+                          np.asarray(ref.apply(jnp.asarray(frame))))
 
 
 @pytest.mark.parametrize("path", ["", "/nonexistent.png", "not-a-png"])

@@ -91,8 +91,14 @@ one-stripe-in-three frames at 17 and 68 stripes of the 1080p grid and at
 W = 90 and 7, frames 1 and 4 bytes into their storage, one differing
 byte at each stripe's first and last byte and at a 16-byte piece's
 edges, widths off 16 pixels, band views of 4 and 16 MB rows as 1 and 4
-stripes, and launches alternating over two streams) and must match it
-exactly, overflow flags included.
+stripes, and launches alternating over two streams; for K12 the 1080p
+and 1366x768 watermarks, odd widths whose rows start at every byte of a
+word, frames 1-3 bytes into their storage, an RGBA 4 bytes into its,
+and all 2^24 (region, R, A) byte triples; for K17 whole frames, 20-, 16-,
+4- and 1-row bands (each segment size the host picks), rows ending in a
+short segment, idle, fully dirty and one-byte-an-MB frames, and frame
+and prev views off 16 bytes) and must match it exactly, overflow flags
+included.
 Tolerance: 0.
 """
 
@@ -1004,47 +1010,74 @@ def test_pad_frame_into_an_unaligned_grid(dev, src, dst, offset):
 
 
 def _wm_inputs(dev, wh, ww, seed):
+    from selkies_tpu_torch.ops import frames as FR
     rng = np.random.default_rng(seed)
-    rgba = rng.integers(0, 256, (wh, ww, 4), dtype=np.uint8)
-    rgb = torch.as_tensor(rgba[..., :3].astype(np.float32), device=dev)
-    a = torch.as_tensor(rgba[..., 3:4].astype(np.float32) / 255.0,
-                        device=dev)
-    return rgb, a
+    rgba = torch.as_tensor(rng.integers(0, 256, (wh, ww, 4), dtype=np.uint8),
+                           device=dev)
+    return rgba, FR.blend_table().to(dev)
 
 
 @pytest.mark.parametrize("case", [
     (1088, 1920, 270, 480, 794, 1424),       # the largest, location 6
     (1088, 1920, 270, 480, 2000, -5),        # clamped anchors
-    (37, 53, 9, 13, 3, 40), (37, 53, 37, 1, -1, 0)])
+    (37, 53, 9, 13, 3, 40), (37, 53, 37, 1, -1, 0),
+    # 1366x768 into its 1376 grid, location 6: bytes start off a word
+    (768, 1376, 192, 341, 560, 1009), (768, 1376, 270, 480, 482, 870),
+    # odd widths (rows off a word, every phase) and anchors
+    (61, 77, 17, 23, 5, 1), (61, 77, 17, 22, 6, 2), (61, 77, 61, 77, 0, 0),
+    (40, 41, 8, 5, -9, 3), (64, 64, 3, 4, 0, 61), (9, 8, 1, 2, 8, 6)])
 def test_watermark_blend(dev, case):
     from selkies_tpu_torch.ops import frames as FR
     H, W, wh, ww, y0, x0 = case
     f = _jpeg_frame(dev, H, W, 5)
-    rgb, a = _wm_inputs(dev, wh, ww, H + wh)
-    k, p = f.clone(), f.clone()
-    FR.watermark_blend(k, rgb, a, y0, x0)
-    FR.watermark_blend_plain(p, rgb, a, y0, x0)
+    rgba, table = _wm_inputs(dev, wh, ww, H + wh)
+    k, p = f.clone(), f.cpu()
+    FR.watermark_blend(k, rgba, table, y0, x0)
+    FR.watermark_blend_plain(p, rgba.cpu(), table.cpu(), y0, x0)
     _same([k], [p])
 
 
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_watermark_blend_on_frame_views_off_a_word(dev, offset):
+    """Frames 1-3 bytes into their storage (each row's bytes off a word
+    by a different amount), an RGBA view 4 bytes in (the byte-wise
+    watermark loads) and a 16-byte aligned one; the bytes around the
+    frame untouched."""
+    from selkies_tpu_torch.ops import frames as FR
+    H, W, wh, ww = 50, 67, 21, 32
+    src = _jpeg_frame(dev, H, W, 9 + offset)
+    buf = torch.full((src.numel() + offset + 8,), 77, dtype=torch.uint8,
+                     device=dev)
+    k = buf[offset:offset + src.numel()].view(H, W, 3)
+    k.copy_(src)
+    rgba, table = _wm_inputs(dev, wh, ww, offset)
+    rbuf = torch.empty(rgba.numel() + 4, dtype=torch.uint8, device=dev)
+    for r in (rgba, rbuf[4:].view(wh, ww, 4).copy_(rgba)):
+        k.copy_(src)
+        FR.watermark_blend(k, r, table, 13, 30 + offset)
+        p = src.cpu().clone()
+        FR.watermark_blend_plain(p, rgba.cpu(), table.cpu(), 13, 30 + offset)
+        _same([k], [p])
+    assert int((buf[:offset] != 77).sum()) == 0
+    assert int((buf[offset + src.numel():] != 77).sum()) == 0
+
+
 def test_watermark_blend_on_every_byte_triple(dev):
-    """All 2^24 (region, watermark, alpha) bytes: the kernel's float
-    order against the plain version's."""
+    """All 2^24 (region, R, A) bytes: the kernel's float order and its
+    alpha table against the plain version's."""
     from selkies_tpu_torch.ops import frames as FR
     q = -(-65536 // 3)
     pairs = np.arange(3 * q) % 65536
     region = torch.as_tensor((pairs >> 8).astype(np.uint8).reshape(q, 3),
                              device=dev).expand(256, q, 3).contiguous()
-    rgb = torch.as_tensor((pairs & 255).astype(np.float32).reshape(q, 3),
-                          device=dev).expand(256, q, 3).contiguous()
-    # alpha formed on the host in float32, as the watermark forms it (a
-    # division on the card may multiply by the reciprocal instead)
-    a = torch.as_tensor(np.arange(256, dtype=np.float32) / 255.0,
-                        device=dev)[:, None, None].expand(256, q, 1)
-    a = a.contiguous()
+    rgba = np.empty((256, q, 4), np.uint8)
+    rgba[..., :3] = (pairs & 255).astype(np.uint8).reshape(q, 3)
+    rgba[..., 3] = np.arange(256, dtype=np.uint8)[:, None]
+    rgba = torch.as_tensor(rgba, device=dev)
+    table = FR.blend_table().to(dev)
     k, p = region.clone(), region.clone()
-    FR.watermark_blend(k, rgb, a, 0, 0)
-    FR.watermark_blend_plain(p, rgb, a, 0, 0)
+    FR.watermark_blend(k, rgba, table, 0, 0)
+    FR.watermark_blend_plain(p, rgba, table, 0, 0)
     _same([k], [p])
 
 
@@ -1498,6 +1531,80 @@ def test_roi_qp_plane_at_1080p(dev, bias):
     b = prev.reshape(-1)[3:3 + 64 * W * 3].reshape(64, W, 3)
     _same([HP.roi_qp_plane(a, b, qp[:4], bias)],
           [HP.roi_qp_plane_plain(a, b, qp[:4], bias)])
+
+
+def _one_byte_per_mb(rng, prev, frac):
+    """``prev`` with one byte changed in about ``frac`` of its MBs, each
+    at a random place of the MB's 16 x 48 bytes (its first and last byte
+    among the places drawn)."""
+    H, W = prev.shape[0], prev.shape[1]
+    R, M = H // 16, W // 16
+    f = prev.copy()
+    hit = rng.random((R, M)) < frac
+    hit[0, 0] = hit[-1, -1] = True
+    py = rng.integers(0, 16, (R, M))
+    bx = rng.integers(0, 48, (R, M))
+    py[0, 0], bx[0, 0], py[-1, -1], bx[-1, -1] = 0, 0, 15, 47
+    r, m = np.nonzero(hit)
+    y, x = 16 * r + py[r, m], 16 * m + bx[r, m] // 3
+    f[y, x, bx[r, m] % 3] ^= 1 << rng.integers(0, 8, len(r)).astype(np.uint8)
+    return f
+
+
+@pytest.mark.parametrize("rows,W", [(68, 1920), (20, 1920), (16, 1920),
+                                    (4, 1920), (1, 1920), (5, 720), (3, 16),
+                                    (9, 1008), (2, 560), (40, 3840)])
+def test_roi_qp_plane_segments(dev, rows, W):
+    """K17 at each segment size the host picks (32, 16 and 8 MBs a
+    block: a whole 1080p frame, a 20-row band, 16-, 4- and 1-row bands,
+    a 4K band) and at widths that end a row in a short segment, as band
+    views 16 rows into a taller frame: idle (prev equal), fully dirty,
+    one byte changed in some MBs (an MB's first and last byte among
+    them), at bias 0, 4 and 12 with row QPs over 0..51."""
+    rng = np.random.default_rng(rows * W)
+    H = 16 * rows
+    p_np = rng.integers(0, 256, (H + 32, W, 3), dtype=np.uint8)
+    prev = torch.as_tensor(p_np, device=dev)
+    cases = {"idle": p_np, "full": 255 - p_np,
+             "bytes": _one_byte_per_mb(rng, p_np, 0.4)}
+    for tag, f_np in cases.items():
+        f = torch.as_tensor(f_np, device=dev)
+        a, b = f[16:16 + H], prev[16:16 + H]
+        for bias in (0, 4, 12):
+            qp = torch.as_tensor(rng.integers(0, 52, rows).astype(np.int32),
+                                 device=dev)
+            got = HP.roi_qp_plane(a, b, qp, bias)
+            want = HP.roi_qp_plane_plain(a.cpu(), b.cpu(), qp.cpu(), bias)
+            _same([got], [want])
+            q = torch.clamp(qp, 8, 48)[:, None].expand(rows, W // 16)
+            if tag == "idle":
+                assert torch.equal(got, q), tag
+            if tag == "full":
+                assert torch.equal(got, torch.clamp(
+                    qp - bias, 8, 48)[:, None].expand(rows, W // 16)), tag
+
+
+@pytest.mark.parametrize("fo,po", [(1, 1), (3, 0), (0, 8), (5, 13)])
+def test_roi_qp_plane_on_unaligned_views(dev, fo, po):
+    """The byte loop: the frame and prev views ``fo`` and ``po`` bytes
+    into their storage (either off 16 bytes), at a whole 1080p frame and
+    a 4-row band, idle, fully dirty and with one byte changed in some
+    MBs."""
+    rng = np.random.default_rng(100 * fo + po)
+    W = 1920
+    p_np = rng.integers(0, 256, (1088, W, 3), dtype=np.uint8)
+    for tag, f_np in (("idle", p_np), ("full", 255 - p_np),
+                      ("bytes", _one_byte_per_mb(rng, p_np, 0.3))):
+        fb = torch.empty(f_np.size + fo, dtype=torch.uint8, device=dev)
+        pb = torch.empty(p_np.size + po, dtype=torch.uint8, device=dev)
+        f = fb[fo:].view(f_np.shape).copy_(torch.as_tensor(f_np))
+        prev = pb[po:].view(p_np.shape).copy_(torch.as_tensor(p_np))
+        for r0, n in ((0, 68), (32, 4)):
+            a, b = f[16 * r0:16 * (r0 + n)], prev[16 * r0:16 * (r0 + n)]
+            qp = torch.as_tensor(rng.integers(0, 52, n).astype(np.int32),
+                                 device=dev)
+            _same([HP.roi_qp_plane(a, b, qp, 4)],
+                  [HP.roi_qp_plane_plain(a.cpu(), b.cpu(), qp.cpu(), 4)])
 
 
 def _qp_planes(dev, rng, R, M):
